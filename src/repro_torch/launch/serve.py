@@ -1,0 +1,150 @@
+"""Serving driver: batched requests against the reduced (smoke) config of
+an architecture with optional bpftime instrumentation, on the GPU by
+default. Also holds the serving probe set that chip_smoke.py and the tests
+attach.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+        --requests 8 --max-new 8 [--admit-limit 12] [--device cpu]
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+
+def admit_filter_text(limit: int) -> str:
+    """The sys_serve_admit filter: reject prompts longer than `limit`."""
+    return f"""
+        ldxdw r6, [r1+ctx:arg1]
+        jle r6, {limit}, ok
+        mov r1, 429
+        call override_return
+        ok:
+        mov r0, 0
+        exit
+    """
+
+
+# The instrumentation the serving path is exercised with: per-layer ARRAY
+# and HASH counters on block entry, a LOG2HIST of each block's output rms,
+# and a RINGBUF record (step, numel, rms, absmax) of every logits tensor.
+# Each entry: (name, asm text, (map name, kind, max_entries, rec_width),
+# target).
+_COUNT = """
+    ldxdw r6, [r1+ctx:layer]
+    stxdw [r10-8], r6
+    lddw r1, map:{map}
+    mov r2, r10
+    add r2, -8
+    mov r3, 1
+    call map_fetch_add
+    mov r0, 0
+    exit
+"""
+_HIST_RMS = """
+    ldxdw r2, [r1+ctx:rms]
+    lddw r1, map:sv_rms_hist
+    call hist_add
+    mov r0, 0
+    exit
+"""
+_RB_LOGITS = """
+    ldxdw r6, [r1+ctx:step]
+    stxdw [r10-32], r6
+    ldxdw r6, [r1+ctx:numel]
+    stxdw [r10-24], r6
+    ldxdw r6, [r1+ctx:rms]
+    stxdw [r10-16], r6
+    ldxdw r6, [r1+ctx:absmax]
+    stxdw [r10-8], r6
+    lddw r1, map:sv_logits_rb
+    mov r2, r10
+    add r2, -32
+    mov r3, 32
+    mov r4, 0
+    call ringbuf_output
+    mov r0, 0
+    exit
+"""
+SERVE_PROBES = [
+    ("sv_count", _COUNT.format(map="sv_layer_counts"),
+     ("sv_layer_counts", "array", 128, 4), "uprobe:block"),
+    ("sv_hash", _COUNT.format(map="sv_key_hash"),
+     ("sv_key_hash", "hash", 256, 4), "uprobe:block"),
+    ("sv_hist", _HIST_RMS, ("sv_rms_hist", "log2hist", 64, 4),
+     "uretprobe:block"),
+    ("sv_rb", _RB_LOGITS, ("sv_logits_rb", "ringbuf", 64, 4),
+     "probe:logits"),
+]
+
+
+def attach_serve_probes(rt):
+    """Load SERVE_PROBES into `rt` and attach them on the fused lane;
+    returns the links."""
+    from ..core.maps import MapKind, MapSpec
+    links = []
+    for name, text, (mname, kind, n, w), target in SERVE_PROBES:
+        pid = rt.load_asm(name, text,
+                          [MapSpec(mname, MapKind(kind), n, rec_width=w)],
+                          "uprobe")
+        links.append(rt.attach(pid, target, mode="fused"))
+    return links
+
+
+def make_requests(n: int, max_new: int, vocab_size: int, seed: int = 0):
+    from ..serve.engine import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i,
+                    prompt=rng.integers(0, vocab_size,
+                                        int(rng.integers(3, 24))).tolist(),
+                    max_new=max_new)
+            for i in range(n)]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--admit-limit", type=int, default=0,
+                    help="reject prompts longer than this via eBPF filter")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    from ..configs import registry
+    from ..core.runtime import BpftimeRuntime
+    from ..device import resolve
+    from ..models import registry as MR
+    from ..serve.engine import ServeEngine
+
+    dev = resolve(args.device)
+    rt = None
+    if args.admit_limit:
+        rt = BpftimeRuntime()
+        pid = rt.load_asm("admit", admit_filter_text(args.admit_limit), [],
+                          "filter")
+        rt.attach(pid, "filter:sys_serve_admit")
+
+    cfg = registry.smoke(args.arch)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = MR.init_params(cfg, gen, dev)
+    engine = ServeEngine(params, cfg, slots=args.slots,
+                         max_seq=args.max_seq, runtime=rt, device=dev)
+    reqs = make_requests(args.requests, args.max_new, cfg.vocab_size)
+    engine.submit_all(reqs)
+    done = sum(1 for r in reqs if r.done and not r.rejected)
+    rej = sum(1 for r in reqs if r.rejected)
+    print(f"served {done}, rejected {rej}, decode steps "
+          f"{engine.step_count}")
+    for r in reqs[:4]:
+        print(f"  req {r.rid}: prompt[{len(r.prompt)}] -> {r.out[:8]}"
+              f"{' (rejected)' if r.rejected else ''}")
+
+
+if __name__ == "__main__":
+    main()

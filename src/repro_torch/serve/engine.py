@@ -1,0 +1,128 @@
+"""Continuous-batching serve engine (host side).
+
+Fixed-slot batcher: B decode slots; finished/empty slots are refilled from
+the queue each iteration (prefill for one request at a time into its slot).
+Admission and eviction are framework syscalls, so eBPF filter programs can
+reject requests (rate limiting / policy -- the paper's syscall filtering in
+the serving plane) and tracepoints can account per-request tokens.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..device import resolve
+from ..models import registry as MR
+from .steps import make_decode_step
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: list[int]
+    max_new: int = 16
+    out: list[int] = field(default_factory=list)
+    done: bool = False
+    rejected: bool = False
+
+
+class ServeEngine:
+    def __init__(self, params, cfg: ModelConfig, *, slots: int = 4,
+                 max_seq: int = 128, runtime=None, eos: int = -1,
+                 device="cuda"):
+        self.device = resolve(device)
+        self.params = params
+        self.cfg = cfg
+        self.slots = slots
+        self.max_seq = max_seq
+        self.runtime = runtime
+        self.eos = eos
+        self.cache = MR.make_cache(cfg, slots, max_seq, torch.float32,
+                                   self.device)
+        self.active: list[Request | None] = [None] * slots
+        self.maps = runtime.init_device_maps(self.device) if runtime else {}
+        self._decode = make_decode_step(cfg, runtime)
+        self.step_count = 0
+        self.events = 0               # probe rows collected by decode steps
+
+    @property
+    def last_tape(self):
+        """(rows, maps_in, step) of the last probed decode step, or None."""
+        return self._decode.last
+
+    # ------------------------------------------------------------- admission
+    def _admit(self, req: Request, fault_retries: int = 3) -> bool:
+        """Admission faults vs vetoes: a NEGATIVE override code from the
+        sys_serve_admit filter is a transient fault -- retried up to
+        fault_retries times before the request degrades to rejected. A
+        non-negative override is a policy rejection: final immediately."""
+        if self.runtime is None:
+            return True
+        for _ in range(fault_retries + 1):
+            res = self.runtime.syscalls.invoke(
+                "sys_serve_admit", [req.rid, len(req.prompt), req.max_new],
+                impl=lambda: True)
+            if not res.overridden:
+                return True
+            if not res.fault:
+                break                # policy veto: final
+        req.rejected = True
+        req.done = True
+        return False
+
+    def _prefill_slot(self, slot: int, req: Request):
+        """Single-request prefill (unprobed) into its slot of the cache."""
+        toks = torch.tensor([req.prompt], dtype=torch.int64,
+                            device=self.device)
+        c1 = MR.make_cache(self.cfg, 1, self.max_seq, torch.float32,
+                           self.device)
+        logits, c1 = MR.prefill_fn(self.params, {"tokens": toks}, c1,
+                                   self.cfg)
+        # the engine owns its cache: write the slot in place
+        for full, one in zip(self.cache["blocks"], c1["blocks"]):
+            for f in full:
+                full[f][:, slot] = one[f][:, 0]
+        self.cache["pos"][slot] = c1["pos"][0]
+        nxt = int(torch.argmax(logits[0, -1, :self.cfg.vocab_size]))
+        req.out.append(nxt)
+
+    # ------------------------------------------------------------- main loop
+    def submit_all(self, requests: list[Request]) -> list[Request]:
+        queue = list(requests)
+        for r in queue:
+            self._admit(r)
+        pending = [r for r in queue if not r.rejected]
+
+        while pending or any(self.active):
+            # refill slots
+            for s in range(self.slots):
+                if self.active[s] is None and pending:
+                    req = pending.pop(0)
+                    self._prefill_slot(s, req)
+                    self.active[s] = req
+            # batched decode over occupied slots
+            toks = [[r.out[-1] if r is not None and r.out else 0]
+                    for r in self.active]
+            nxt, _, self.cache, self.maps = self._decode(
+                self.params,
+                torch.tensor(toks, dtype=torch.int64, device=self.device),
+                self.cache, self.maps, self.step_count)
+            if self._decode.last is not None:
+                self.events += self._decode.last[0].shape[0]
+            self.step_count += 1
+            nxt = nxt.tolist()
+            for s, r in enumerate(self.active):
+                if r is None:
+                    continue
+                r.out.append(int(nxt[s]))
+                if (len(r.out) >= r.max_new or int(nxt[s]) == self.eos
+                        or len(r.prompt) + len(r.out) >= self.max_seq - 1):
+                    r.done = True
+                    if self.runtime is not None:
+                        self.runtime.syscalls.invoke(
+                            "sys_serve_evict", [r.rid, len(r.out)],
+                            impl=lambda: True)
+                    self.active[s] = None
+        return requests

@@ -1,0 +1,44 @@
+"""Serving steps with the probe stage inside (instrumented serving --
+per-request latency/step histograms via eBPF maps without leaving the
+device)."""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..core import events as E, jit as J
+from ..models import registry as MR
+
+
+def make_decode_step(cfg: ModelConfig, runtime=None, probe_mode=None):
+    """The decode step. It keeps the last step's event tape and the map
+    state it started from on `decode_step.last` (rows, maps_in, step), so a
+    caller can replay the tape through another probe mode."""
+    wanted = runtime.wanted_sites() if runtime else set()
+
+    def decode_step(params, tokens, cache, maps, step: int):
+        """tokens [B,1] int; returns (next_token [B], logits, cache, maps)."""
+        col = E.Collector(wanted) if runtime else None
+        with col if col is not None else contextlib.nullcontext():
+            logits, cache = MR.decode_fn(params, tokens, cache, cfg)
+            if col is not None:
+                E.probe_site("decode.logits", logits)
+                rows = col.take_all_rows(tokens.device)
+        # mask vocab padding before argmax (argmax takes the first maximum)
+        if cfg.padded_vocab > cfg.vocab_size:
+            logits = logits.clone()
+            logits[..., cfg.vocab_size:] = float("-inf")
+        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        decode_step.last = None
+        if runtime is not None and rows.shape[0] > 0:
+            aux = J.make_aux(time_ns=step, device=tokens.device)
+            rows[:, 3] = step
+            decode_step.last = (rows, maps, step)
+            maps, aux = runtime.probe_stage(rows, maps, aux, mode=probe_mode)
+        return nxt, logits, cache, maps
+
+    decode_step.last = None
+    return decode_step
+

@@ -1,0 +1,208 @@
+"""The port's serving path against the JAX package's, on the CPU: the smoke
+qwen2-0.5b config (f32) with the JAX weights carried across, the admission
+filter and the four serving probes attached on the fused lane."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import registry as JCFG  # noqa: E402
+from repro.core import maps as JM  # noqa: E402
+from repro.core.runtime import BpftimeRuntime as JRuntime  # noqa: E402
+from repro.models import registry as JMR  # noqa: E402
+from repro.serve.engine import Request as JRequest, ServeEngine as JEngine  # noqa: E402,E501
+
+from repro_torch.configs import registry as TCFG  # noqa: E402
+from repro_torch.core.runtime import BpftimeRuntime as TRuntime, to_numpy  # noqa: E402,E501
+from repro_torch.launch import serve as TL  # noqa: E402
+from repro_torch.models import registry as TMR  # noqa: E402
+from repro_torch.serve.engine import ServeEngine as TEngine  # noqa: E402
+
+CPU = "cpu"
+JCFG_ = JCFG.smoke("qwen2-0.5b")
+TCFG_ = TCFG.smoke("qwen2-0.5b")
+STAT_TOL = 2e-5
+ADMIT_LIMIT = 12
+
+
+@pytest.fixture(scope="module")
+def weights():
+    jp = JMR.init_params(jax.random.PRNGKey(0), JCFG_)
+    npp = jax.tree.map(np.asarray, jp)
+    return jp, TMR.params_from_numpy(npp, CPU)
+
+
+def test_config_copied_unchanged():
+    assert TCFG.get("qwen2-0.5b").__dict__ == JCFG.get("qwen2-0.5b").__dict__
+    assert TCFG_.__dict__ == JCFG_.__dict__
+
+
+def test_weights_carry_across(weights):
+    jp, tp = weights
+    jl = jax.tree.leaves(jp)
+    assert len(jl) > 0
+    assert tp["stack"]["blocks"][0]["attn"]["wq"].shape == \
+        jp["stack"]["blocks"][0]["attn"]["wq"].shape
+    np.testing.assert_array_equal(tp["embed"]["embedding"].numpy(),
+                                  np.asarray(jp["embed"]["embedding"]))
+
+
+def test_prefill_and_decode_logits_match(weights):
+    jp, tp = weights
+    rng = np.random.default_rng(3)
+    prompt = rng.integers(0, JCFG_.vocab_size, (2, 7))
+    jc = JMR.make_cache(JCFG_, 2, 16, jnp.float32)
+    tc = TMR.make_cache(TCFG_, 2, 16, torch.float32, CPU)
+    jl, jc = JMR.prefill_fn(jp, {"tokens": jnp.asarray(prompt, jnp.int32)},
+                            jc, JCFG_)
+    tl, tc = TMR.prefill_fn(tp, {"tokens": torch.as_tensor(prompt)}, tc,
+                            TCFG_)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                               atol=1e-4)
+    for _ in range(3):
+        nxt = np.asarray(jnp.argmax(jl[:, -1, :JCFG_.vocab_size], -1))
+        assert (tl[:, -1, :TCFG_.vocab_size].argmax(-1).numpy()
+                == nxt).all()
+        jl, jc = JMR.decode_fn(jp, jnp.asarray(nxt[:, None], jnp.int32), jc,
+                               JCFG_)
+        tl, tc = TMR.decode_fn(tp, torch.tensor(nxt[:, None]), tc, TCFG_)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                                   atol=1e-4)
+    np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
+    for j in range(len(jc["blocks"])):
+        for f in ("k", "v"):
+            np.testing.assert_allclose(tc["blocks"][j][f].numpy(),
+                                       np.asarray(jc["blocks"][j][f]),
+                                       rtol=1e-4, atol=1e-4)
+
+
+def test_train_forward_and_flash_attention_match(weights):
+    """The no-cache forward and the chunked online-softmax attention (the
+    path for sequences above 2048) against the JAX package's."""
+    from repro.models import layers as JL, transformer as JTF
+    from repro_torch.models import layers as TL_, transformer as TTF
+    jp, tp = weights
+    toks = np.random.default_rng(4).integers(0, JCFG_.vocab_size, (2, 9))
+    jl, _ = JTF.forward(jp, jnp.asarray(toks, jnp.int32), JCFG_)
+    tl, _ = TTF.forward(tp, torch.as_tensor(toks), TCFG_)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                               atol=1e-4)
+    rng = np.random.default_rng(5)
+    q = rng.normal(size=(2, 16, 4, 8)).astype(np.float32)
+    k, v = (rng.normal(size=(2, 16, 2, 8)).astype(np.float32)
+            for _ in range(2))
+    want = JL.flash_attention(*map(jnp.asarray, (q, k, v)), causal=True,
+                              q_chunk=4, kv_chunk=8)
+    got = TL_.flash_attention(*map(torch.as_tensor, (q, k, v)), causal=True,
+                              q_chunk=4, kv_chunk=8)
+    full = TL_.full_attention(*map(torch.as_tensor, (q, k, v)), causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), full.numpy(), rtol=1e-4,
+                               atol=1e-5)
+
+
+def _jax_runtime():
+    rt = JRuntime()
+    pid = rt.load_asm("admit", TL.admit_filter_text(ADMIT_LIMIT), [],
+                      "filter")
+    rt.attach(pid, "filter:sys_serve_admit")
+    for name, text, (mname, kind, n, w), target in TL.SERVE_PROBES:
+        spec = JM.MapSpec(mname, JM.MapKind(kind), n, rec_width=w)
+        rt.attach(rt.load_asm(name, text, [spec], "uprobe"), target,
+                  mode="fused")
+    return rt
+
+
+def _torch_runtime():
+    rt = TRuntime()
+    pid = rt.load_asm("admit", TL.admit_filter_text(ADMIT_LIMIT), [],
+                      "filter")
+    rt.attach(pid, "filter:sys_serve_admit")
+    TL.attach_serve_probes(rt)
+    return rt
+
+
+@pytest.fixture(scope="module")
+def served(weights):
+    jp, tp = weights
+    reqs_t = TL.make_requests(8, 8, TCFG_.vocab_size)
+    reqs_j = [JRequest(rid=r.rid, prompt=list(r.prompt), max_new=r.max_new)
+              for r in reqs_t]
+    je = JEngine(jp, JCFG_, slots=4, max_seq=128, runtime=_jax_runtime())
+    je.submit_all(reqs_j)
+    te = TEngine(tp, TCFG_, slots=4, max_seq=128, runtime=_torch_runtime(),
+                 device=CPU)
+    te.submit_all(reqs_t)
+    return je, reqs_j, te, reqs_t
+
+
+def test_serve_tokens_and_admission_match(served):
+    je, reqs_j, te, reqs_t = served
+    assert [r.rejected for r in reqs_t] == [r.rejected for r in reqs_j]
+    assert any(r.rejected for r in reqs_t) and not all(
+        r.rejected for r in reqs_t)
+    assert [r.out for r in reqs_t] == [r.out for r in reqs_j]
+    assert te.step_count == je.step_count
+    assert te.events == te.step_count * (2 * TCFG_.num_layers + 1)
+
+
+def test_serve_map_states_match(served):
+    je, _, te, _ = served
+    jm = {n: {f: np.asarray(a) for f, a in st.items()}
+          for n, st in je.maps.items()}
+    tm = to_numpy(te.maps)
+    assert set(tm) == set(jm)
+    for name in ("sv_layer_counts", "sv_key_hash", "sv_rms_hist"):
+        for f in jm[name]:
+            np.testing.assert_array_equal(tm[name][f], jm[name][f],
+                                          err_msg=f"{name}.{f}")
+    assert tm["sv_layer_counts"]["values"][:TCFG_.num_layers].sum() > 0
+    rb_t, rb_j = tm["sv_logits_rb"], jm["sv_logits_rb"]
+    np.testing.assert_array_equal(rb_t["head"], rb_j["head"])
+    np.testing.assert_array_equal(rb_t["dropped"], rb_j["dropped"])
+    assert rb_t["head"][0] == te.step_count
+    # lanes: step and numel are integers (exact); rms and absmax are Q47.16
+    # stats (within the stats tolerance)
+    np.testing.assert_array_equal(rb_t["data"][:, :2], rb_j["data"][:, :2])
+    np.testing.assert_allclose(rb_t["data"][:, 2:].astype(np.float64),
+                               rb_j["data"][:, 2:].astype(np.float64),
+                               rtol=STAT_TOL, atol=1)
+
+
+@pytest.mark.parametrize("mode", ["scan", "vectorized"])
+def test_last_tape_replays_bit_identical(served, mode):
+    """The last decode step's tape through the scan and vectorized modes
+    ends in the map state the fused lane produced."""
+    _, _, te, _ = served
+    rows, maps_in, step = te.last_tape
+    from repro_torch.core import jit as TJ
+    fused, _ = te.runtime.probe_stage(rows, maps_in,
+                                      TJ.make_aux(time_ns=step, device=CPU),
+                                      mode="fused")
+    got, _ = te.runtime.probe_stage(rows, maps_in,
+                                    TJ.make_aux(time_ns=step, device=CPU),
+                                    mode=mode)
+    want, got = to_numpy(fused), to_numpy(got)
+    np.testing.assert_array_equal(to_numpy(te.maps)["sv_key_hash"]["values"],
+                                  want["sv_key_hash"]["values"])
+    for name in want:
+        for f in want[name]:
+            np.testing.assert_array_equal(got[name][f], want[name][f],
+                                          err_msg=f"{name}.{f} [{mode}]")
+
+
+def test_entry_points_refuse_missing_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TMR.init_params(TCFG_)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TRuntime().init_device_maps()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TEngine({}, TCFG_)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TL.main(["--requests", "1"])
