@@ -22,10 +22,12 @@ Event row layout (i64 lanes; stats in saturating Q47.16 fixed point):
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 from ..kernels.ref import STAT_KEYS
@@ -118,6 +120,18 @@ class Collector:
         Collector._tls.collector = None
         return False
 
+    @staticmethod
+    @contextlib.contextmanager
+    def suspended():
+        """No collector on this thread inside the block (the remat
+        recompute runs the probed forward again; its sites stay nops)."""
+        old = Collector.active()
+        Collector._tls.collector = None
+        try:
+            yield
+        finally:
+            Collector._tls.collector = old
+
     # ---- emission
     def wants(self, site_id: int, kind: int) -> bool:
         return (site_id, kind) in self.wanted
@@ -138,7 +152,12 @@ class Collector:
             _HEADERS[key] = h
         return h
 
+    @torch.no_grad()
     def emit_tensor_event(self, site_id: int, kind: int, tensor):
+        """Stats of `tensor.detach()`: no probe enters the autograd graph,
+        and a probed tensor that carries gradients saves nothing for the
+        backward pass."""
+        tensor = tensor.detach()
         st = self.stats_fn(tensor)
         fx = to_fx(torch.stack([st[k] for k in STAT_KEYS]))
         cnt = torch.stack([st["nan_cnt"], st["inf_cnt"]]).to(I64)
@@ -211,27 +230,58 @@ def traceable(name: str):
 # layer loop with layer ids
 # --------------------------------------------------------------------------
 
-def probed_scan(body, carry, xs, *, length=None, layer_ids=True):
+def probed_scan(body, carry, xs, *, length=None, remat=False,
+                layer_ids=True):
     """The loop over stacked layers: `xs` is a (nested) structure of
     tensors with the layers on dim 0; body(carry, x_i) -> (carry, y_i).
     Returns (carry, ys) with the y_i stacked on dim 0 (None when every y_i
     is None). While a collector is active each iteration sets `layer_ctx`
     to its index, so its rows carry the layer id; rows land on the tape in
-    layer order, the order the JAX scan emits them."""
+    layer order, the order the JAX scan emits them.
+
+    remat=True wraps each iteration in `torch.utils.checkpoint` (the
+    `jax.checkpoint` of the JAX scan): its activations are recomputed in
+    the backward pass. The recompute runs with the collector suspended, so
+    every site fires once per step, as the JAX scan's rows are primal
+    outputs inside the remat boundary."""
     n = length if length is not None else _tree_leaves(xs)[0].shape[0]
-    col = Collector.active()
+    col = Collector.active() if layer_ids else None
     ys = []
     for i in range(n):
         x = _tree_map(lambda a: a[i], xs)
-        if col is not None and layer_ids:
-            old = col.layer_ctx
-            col.layer_ctx = i
-            carry, y = body(carry, x)
-            col.layer_ctx = old
+        step = functools.partial(_layer_step, body, col, i)
+        if remat:
+            carry, y = checkpoint(_once_probed(step), carry, x,
+                                  use_reentrant=False)
         else:
-            carry, y = body(carry, x)
+            carry, y = step(carry, x)
         ys.append(y)
     return carry, _tree_stack(ys)
+
+
+def _layer_step(body, col, i, carry, x):
+    if col is None:
+        return body(carry, x)
+    old = col.layer_ctx
+    col.layer_ctx = i
+    try:
+        return body(carry, x)
+    finally:
+        col.layer_ctx = old
+
+
+def _once_probed(fn):
+    """fn, with every call after the first (the remat recompute) run with
+    the collector suspended."""
+    calls = [0]
+
+    def run(*args):
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(*args)
+        with Collector.suspended():
+            return fn(*args)
+    return run
 
 
 def _tree_leaves(tree) -> list:

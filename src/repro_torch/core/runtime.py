@@ -133,6 +133,12 @@ class BpftimeRuntime:
         self.syscalls = S.SyscallTable(self.host_maps, self.map_specs,
                                        pid=pid)
         self.shm = None
+        # the live lane, background promotion and the artifact cache come
+        # with later slices; the training loop reads these as the JAX
+        # runtime's
+        self.live = None
+        self.artifact_cache = None
+        self._promoter = None
         # 'fused' (default): single-pass multi-program dispatch;
         # 'scan' / 'vectorized': the per-attachment paths.
         self.exec_mode = "fused"
@@ -271,7 +277,17 @@ class BpftimeRuntime:
         raise NotImplementedError(_LATER["live"])
 
     def sync_live_table(self, map_states, force: bool = False):
+        """Push a live-table change onto the running step. With no live
+        lane (always, in this package so far) the states come back
+        untouched, as in the JAX runtime."""
+        if self.live is None:
+            return map_states
         raise NotImplementedError(_LATER["live"])
+
+    def take_promoted_step(self):
+        """The step a background promotion compiled, if one is ready:
+        never, without promotion."""
+        return None
 
     def enable_promotion(self, *args, **kwargs):
         raise NotImplementedError(_LATER["promote"])

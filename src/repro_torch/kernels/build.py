@@ -17,7 +17,8 @@ import threading
 import time
 from pathlib import Path
 
-SOURCES = ("tensor_stats", "hash_update", "ringbuf_emit")
+SOURCES = ("tensor_stats", "hash_update", "ringbuf_emit",
+           "flash_attention")
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -113,6 +114,16 @@ def require(t, what: str, dtype, ndim: int, device=None) -> None:
         raise ValueError(f"{what}: expected {ndim} dims, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: must be contiguous")
+
+
+def on_card(t, name: str) -> bool:
+    """True when `t` goes to the kernel (a CUDA tensor), False when it goes
+    to the plain version (a CPU tensor); any other device raises."""
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel or plain version for {t.device}")
 
 
 def check(rc: int, kernel: str) -> None:

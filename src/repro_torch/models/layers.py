@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..kernels import ops
 
 F32 = torch.float32
 
@@ -187,9 +188,6 @@ def flash_attention(q, k, v, *, causal=True, q_chunk=2048, kv_chunk=2048):
     return torch.cat(outs, dim=1).reshape(B, Sq, H, hd)
 
 
-FLASH_THRESHOLD = 8192
-
-
 def _write_cache(c, u, start):
     """Copy of cache c [B, Smax, KH, hd] with u [B, S, KH, hd] written at
     rows start[b] .. start[b] + S - 1. Like the JAX dynamic update, the
@@ -223,12 +221,15 @@ def attention_block(p, x, positions, cfg: ModelConfig, *, cache=None,
                @ p["wo"].to(x.dtype))
         return out, (ck, cv)
 
-    if S > FLASH_THRESHOLD:
-        o = flash_attention(q, k, v, causal=True)
+    # above 2048 tokens both branches of the JAX code (either side of its
+    # FLASH_THRESHOLD, which only sets the chunk size) run the chunked
+    # online softmax that its TPU target executes as the Pallas kernel;
+    # here that is `ops.flash_attention`, the Hopper kernels on a CUDA
+    # tensor. `flash_attention` above stays as the model-level reference.
+    if S <= 2048:
+        o = full_attention(q, k, v, causal=True)
     else:
-        o = full_attention(q, k, v, causal=True) if S <= 2048 else \
-            flash_attention(q, k, v, causal=True,
-                            q_chunk=min(2048, S), kv_chunk=min(2048, S))
+        o = ops.flash_attention(q, k, v, causal=True)
     out = o.reshape(B, S, cfg.num_heads * cfg.hd) @ p["wo"].to(x.dtype)
     return out, (k, v)
 

@@ -124,11 +124,16 @@ def _superblock_fwd(p_sb, x, cache_sb, positions, cfg: ModelConfig,
 # full forward
 # --------------------------------------------------------------------------
 
-def forward(params, tokens, cfg: ModelConfig, *, positions=None,
-            cache=None, mode: str = "train"):
-    """tokens: [B, S] int; positions: [B, S] (default iota, or the cache
-    length when decoding). Returns (logits f32 [B, S, V], new_cache|None)."""
+def forward(params, tokens, cfg: ModelConfig, *, embeds=None,
+            positions=None, cache=None, mode: str = "train",
+            remat: bool = False):
+    """tokens: [B, S_text] int; embeds: [B, S_front, D] modality stub
+    (prepended); positions: [B, S] (default iota, or the cache length when
+    decoding); remat recomputes each superblock's activations in the
+    backward pass. Returns (logits f32 [B, S, V], new_cache|None)."""
     x = L.embed(params["embed"], tokens, cfg)
+    if embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
     B, S, _ = x.shape
     if positions is None:
         if mode == "decode" and cache is not None:
@@ -148,11 +153,12 @@ def forward(params, tokens, cfg: ModelConfig, *, positions=None,
 
     if cache is None:
         x, _ = E.probed_scan(lambda c, p_sb: (body(c, (p_sb, None))[0], None),
-                             x, params["stack"])
+                             x, params["stack"], remat=remat)
         new_cache = None
     else:
         x, new_blocks = E.probed_scan(
-            body, x, (params["stack"], {"blocks": cache["blocks"]}))
+            body, x, (params["stack"], {"blocks": cache["blocks"]}),
+            remat=remat)
         new_pos = cache["pos"] + (S if mode != "train" else 0)
         new_cache = {"blocks": new_blocks, "pos": new_pos}
 

@@ -746,6 +746,10 @@ bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "repro" or m.startswith("repro.")]
 bad = [m for m in bad if sys.modules[m] is not None]
 assert not bad, bad
+training = {"repro_torch.kernels.flash_attention", "repro_torch.optim",
+            "repro_torch.optim.optimizers", "repro_torch.data.pipeline",
+            "repro_torch.train.train_step", "repro_torch.launch.train"}
+assert training <= set(names), training - set(names)
 print(len(names))
 """
     env = dict(os.environ)
@@ -753,4 +757,4 @@ print(len(names))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25
+    assert int(out.stdout.strip()) >= 54

@@ -104,3 +104,77 @@ def test_ringbuf_kernel_matches_plain(cuda, batch):
     for g, w in zip(TRB.ringbuf_emit_batch_cuda(*args),
                     TREF.ringbuf_emit_batch(*args)):
         assert torch.equal(g, w)
+
+
+# ------------------------------------------------------ flash attention
+
+def _flash_case(cuda, BH, BKH, S, hd, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    mk = lambda n: torch.randn(n, S, hd, generator=g,  # noqa: E731
+                               device=cuda).to(getattr(torch, dtype))
+    return mk(BH), mk(BKH), mk(BKH), mk(BH)
+
+
+# (BH, BKH, S, hd): GQA rep 1, 2 and 7; S off the 64-row tile; the path's
+# head dim 64 and the smoke config's 16
+FLASH_CASES = [(4, 4, 128, 32), (8, 4, 256, 16), (14, 2, 200, 64),
+               (28, 4, 1024, 64), (4, 2, 100, 128)]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=["-".join(map(str, c)) for c in FLASH_CASES])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_match_plain(cuda, case, dtype, causal):
+    from repro_torch.kernels import flash_attention as TFA
+    torch.backends.cuda.matmul.allow_tf32 = False
+    BH, BKH, S, hd = case
+    q, k, v, do = _flash_case(cuda, BH, BKH, S, hd, dtype, sum(case))
+    rep = BH // BKH
+    o, lse = TFA.flash_fwd_cuda(q, k, v, causal)
+    wo, wlse = TREF.flash_fwd(q, k, v, causal, rep)
+    # (rtol, atol) of o, lse and the gradients, whose atol scales with
+    # their largest magnitude: f32 as test_flash_kernel.py; bf16 one
+    # rounding of o apart, lse (f32 on both sides) within 1e-4, gradients
+    # with the rep-group sum rounded once in the kernel but per q head in
+    # the plain version, and within 1e-2 in relative norm
+    if dtype == "float32":
+        o_tol, lse_tol, g_tol, norm_tol = ((2e-4, 2e-4), (2e-4, 2e-4),
+                                           (5e-4, 5e-4), None)
+    else:
+        o_tol, lse_tol, g_tol, norm_tol = ((2e-2, 2e-3), (0.0, 1e-4),
+                                           (2e-2, 2e-3), 1e-2)
+    np.testing.assert_allclose(o.float().cpu().numpy(),
+                               wo.float().cpu().numpy(), *o_tol)
+    np.testing.assert_allclose(lse.cpu().numpy(), wlse.cpu().numpy(),
+                               *lse_tol)
+    got = TFA.flash_bwd_cuda(q, k, v, o, lse, do, causal)
+    want = TREF.flash_bwd(q, k, v, o, lse, do, causal, rep)
+    again = TFA.flash_bwd_cuda(q, k, v, o, lse, do, causal)
+    for name, g_, w_, a_ in zip(("dq", "dk", "dv"), got, want, again):
+        assert g_.dtype == q.dtype and g_.shape == w_.shape
+        assert torch.equal(g_, a_), f"{name} differs between two runs"
+        g32, w32 = g_.float(), w_.float()
+        scale = max(1.0, float(w32.abs().max()))
+        np.testing.assert_allclose(g32.cpu().numpy(), w32.cpu().numpy(),
+                                   rtol=g_tol[0], atol=g_tol[1] * scale,
+                                   err_msg=name)
+        if norm_tol is not None:
+            rel = float((g32 - w32).norm() / w32.norm())
+            assert rel <= norm_tol, f"{name}: relative norm {rel:.3e}"
+
+
+def test_flash_attention_op_launches_kernels(cuda):
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn(2, 192, 14, 64, generator=g, device=cuda,
+                    dtype=torch.bfloat16).requires_grad_(True)
+    k, v = (torch.randn(2, 192, 2, 64, generator=g, device=cuda,
+                        dtype=torch.bfloat16).requires_grad_(True)
+            for _ in range(2))
+    ops.reset_launch_counts()
+    o = ops.flash_attention(q, k, v, causal=True)
+    o.float().square().sum().backward()
+    counts = ops.launch_counts()
+    assert counts["flash_fwd"] == 1 and counts["flash_bwd"] == 1
+    assert q.grad.dtype == torch.bfloat16 and k.grad.shape == k.shape

@@ -150,7 +150,8 @@ def test_ops_dispatch_by_device():
     assert float(st["mean"]) == 4.5
     assert ops.launch_counts() == {"tensor_stats": 0,
                                    "hash_fetch_add_batch": 0,
-                                   "ringbuf_emit_batch": 0}
+                                   "ringbuf_emit_batch": 0,
+                                   "flash_fwd": 0, "flash_bwd": 0}
     with pytest.raises(ValueError, match="meta"):
         ops.tensor_stats(torch.empty(4, device="meta"))
     for fn, args in ((TTS.tensor_stats_cuda, (x,)),
