@@ -6,12 +6,16 @@
 
 Phases:
   1. build the four Hopper kernel sources from src/repro_torch/kernels/csrc
-     with nvcc (one process per source, in parallel);
+     with nvcc (one process per source, in parallel); print each bf16 flash
+     kernel's registers, spill bytes and shared memory (ptxas -v) and its
+     HGMMA (wgmma) instructions in `cuobjdump -sass` of the library, and
+     fail if one has no HGMMA;
   2. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and at stress shapes, and time both; flash
      attention forward and backward also against
-     scaled_dot_product_attention's time (the yardstick, never called by
-     the port), and the backward twice for bit-identity;
+     scaled_dot_product_attention's forward and its backward alone (the
+     yardsticks, never called by the port), and the backward twice for
+     bit-identity;
   3. serve qwen2-0.5b at full width (bf16, random weights from a seed):
      8 requests, 4 slots, max_seq 128, max_new 8, the sys_serve_admit filter
      at limit 12, and four probes on the fused lane (ARRAY and HASH layer
@@ -58,18 +62,14 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 STATS_TOL = 2e-5
-# flash attention in f32: test_flash_kernel.py's tolerances (forward 2e-4,
-# gradients 5e-4). In bf16, at the training path's shape, as (rtol, atol):
-# o one bf16 rounding apart; lse, f32 on both sides, within 1e-4 absolute;
-# gradients elementwise with atol 2e-3 x their largest magnitude (the
-# plain version rounds each q head's dk/dv share to bf16 before the
-# rep-group sum, the kernel rounds the sum once), and within 1e-2 in
-# relative norm per output
-FLASH_F32_TOL = (2e-4, 5e-4)
-FLASH_BF16_O = (2e-2, 2e-3)
-FLASH_LSE = (0.0, 1e-4)
-FLASH_BF16_GRAD = (2e-2, 2e-3)
-FLASH_BF16_NORM = 1e-2
+# flash attention: the tolerances are `kernels/flash_attention.TOL_*`,
+# shared with the tests (f32 as test_flash_kernel.py; bf16 o one rounding
+# apart, lse within 1e-4, gradients with atol scaled by their largest
+# magnitude -- the plain version rounds each q head's dk/dv share to bf16
+# before the rep-group sum, the kernel rounds the sum once -- and within
+# 1e-2 in relative norm per output)
+# the bf16 flash kernels (namespace sm90 of csrc/flash_attention_sm90.cuh)
+FLASH_SM90 = ("fwd_kernel", "dkv_kernel", "dq_kernel")
 # the smoke-width training step card vs CPU (f32, TF32 off), whose sums run
 # in other orders: loss, gradient norm and each gradient leaf within 1e-4
 # relative, updated parameters within 3e-5 absolute, a tenth of the first
@@ -104,6 +104,98 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+# --------------------------------------------------------------------------
+# phase 1: what the build made of the bf16 flash kernels
+# --------------------------------------------------------------------------
+
+def _sm90_label(mangled: str):
+    """`dkv_kernel<64>` for a mangled sm90 flash kernel's name, else None."""
+    for k in FLASH_SM90:
+        m = re.search(rf"sm90\d+{k}ILi(\d+)E", mangled)
+        if m:
+            return f"{k}<{m.group(1)}>"
+    return None
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel: registers, spill bytes, shared memory} of the bf16 flash
+    kernels, from nvcc's -Xptxas=-v output."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\w+)", line)
+        if m:
+            cur = _sm90_label(m.group(1))
+            if cur:
+                out.setdefault(cur, {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur]["spill_stores"] = int(m.group(1))
+            out[cur]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[cur]["static_smem"] = int(m.group(1)) if m else 0
+    return out
+
+
+def sass_hgmma(build):
+    """{kernel: HGMMA instructions} of the bf16 flash kernels in
+    `cuobjdump -sass` of the built library, or None without cuobjdump."""
+    import shutil
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(build.path("flash_attention"))],
+                          capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump -sass failed: {sass.stderr.strip()[:500]}")
+    counts, cur = {}, None
+    for line in sass.stdout.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            cur = _sm90_label(m.group(1))
+            if cur:
+                counts[cur] = 0
+            continue
+        if cur and "HGMMA" in line:
+            counts[cur] += 1
+    return counts
+
+
+def check_build(build) -> dict:
+    """Phase 1's report on the bf16 flash kernels; fails if one has no
+    HGMMA instruction."""
+    regs = ptxas_report(build.BUILD_LOG.get("flash_attention", ""))
+    hgmma = sass_hgmma(build)
+    if hgmma is None:
+        print("  cuobjdump not found: HGMMA instructions not counted",
+              flush=True)
+    names = sorted(set(regs) | set(hgmma or {}))
+    if len(names) != len(FLASH_SM90) * 4:
+        fail(f"phase 1: expected {len(FLASH_SM90) * 4} bf16 flash kernels "
+             f"(3 kernels x 4 head dims), found {names}")
+    for name in names:
+        r = regs.get(name, {})
+        if hgmma is not None:
+            r["hgmma"] = hgmma.get(name, 0)
+        print(f"  {name}: {r.get('registers')} registers, spill stores "
+              f"{r.get('spill_stores')} B, loads {r.get('spill_loads')} B, "
+              f"static shared memory {r.get('static_smem')} B (the tiles "
+              f"are dynamic), HGMMA {r.get('hgmma', 'not counted')}",
+              flush=True)
+        regs[name] = r
+    if hgmma is not None and any(hgmma.get(n, 0) == 0 for n in names):
+        fail(f"a bf16 flash kernel has no HGMMA instruction: {hgmma}")
+    return regs
 
 
 # --------------------------------------------------------------------------
@@ -264,7 +356,7 @@ def check_flash(torch, FA, ref):
     both are timed beside scaled_dot_product_attention. Returns
     (max abs err at the path's shape, fwd row, bwd row)."""
     import torch.nn.functional as F
-    tf, tb = FLASH_F32_TOL
+    tf, tb = FA.TOL_F32
     for B, S, H, KH, hd in ((1, 128, 2, 2, 32), (2, 256, 4, 2, 16),
                             (1, 128, 8, 2, 64)):
         for causal in (True, False):
@@ -287,20 +379,21 @@ def check_flash(torch, FA, ref):
     q, k, v, do = _flash_inputs(torch, BH, BKH, S, hd, torch.bfloat16, 7)
     o, lse = FA.flash_fwd_cuda(q, k, v, True)
     wo, wl = ref.flash_fwd(q, k, v, True, H // KH)
-    err = _close(torch, o, wo, *FLASH_BF16_O, "flash_fwd bf16 path shape")
-    lse_err = _close(torch, lse, wl, *FLASH_LSE, "flash lse bf16 path shape")
+    err = _close(torch, o, wo, *FA.TOL_BF16_O, "flash_fwd bf16 path shape")
+    lse_err = _close(torch, lse, wl, *FA.TOL_LSE,
+                     "flash lse bf16 path shape")
     got = FA.flash_bwd_cuda(q, k, v, o, lse, do, True)
     again = FA.flash_bwd_cuda(q, k, v, o, lse, do, True)
     want = ref.flash_bwd(q, k, v, o, lse, do, True, H // KH)
     torch.cuda.synchronize()
-    gerr, rtol, atol = 0.0, *FLASH_BF16_GRAD
+    gerr, rtol, atol = 0.0, *FA.TOL_BF16_GRAD
     for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
         if not torch.equal(g, a):
             fail(f"flash_bwd {name}: two runs are not bit-identical")
         scale = max(1.0, float(w.float().abs().max()))
         gerr = max(gerr, _close(torch, g, w, rtol, atol * scale,
                                 f"flash_bwd {name} bf16 path shape",
-                                FLASH_BF16_NORM))
+                                FA.TOL_BF16_NORM))
     # the yardstick: one library call on the same inputs ([B, H, S, hd])
     q4, k4, v4, do4 = (t.view(B, -1, S, hd) for t in (q, k, v, do))
     sd = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
@@ -314,6 +407,11 @@ def check_flash(torch, FA, ref):
                                              enable_gqa=True)
         torch.autograd.grad(out, (qg, kg, vg), do4)
 
+    # SDPA's backward alone, on the graph of one forward: the same work as
+    # flash_bwd
+    sd_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                            enable_gqa=True)
+
     fwd_ms = cuda_ms(torch, lambda: FA.flash_fwd_cuda(q, k, v, True), 10)
     fwd_plain = cuda_ms(torch, lambda: ref.flash_fwd(q, k, v, True, H // KH),
                         3, warmup=1)
@@ -325,6 +423,9 @@ def check_flash(torch, FA, ref):
                                                      True, H // KH),
                         3, warmup=1)
     fb_lib = cuda_ms(torch, sdpa_fwd_bwd, 10)
+    bwd_lib = cuda_ms(torch, lambda: torch.autograd.grad(
+        sd_out, (qg, kg, vg), do4, retain_graph=True), 10)
+    del sd_out
     pairs = S * (S + 1) // 2                       # causal (q, k) pairs
     io = 2 * (2 * BH + 2 * BKH) * S * hd           # q, o and k, v in bf16
     fb, fby = bound_ms(io + 4 * BH * S, 4.0 * hd * pairs * BH,
@@ -337,24 +438,29 @@ def check_flash(torch, FA, ref):
     fwd_row = {"shape": [B, S, H, KH, hd], "dtype": "bfloat16",
                "ms": fwd_ms, "plain_ms": fwd_plain, "bound_ms": fb,
                "bound_by": fby, "library_ms": fwd_lib,
+               "library_is": "sdpa forward",
                "tflops": 4.0 * hd * pairs * BH / fwd_ms / 1e9,
+               "share_of_bound": fb / fwd_ms,
                "max_abs_err": err, "lse_max_abs_err": lse_err,
                "max_abs_diff_vs_sdpa": sdpa_err}
     bwd_row = {"shape": [B, S, H, KH, hd], "dtype": "bfloat16",
                "ms": bwd_ms, "plain_ms": bwd_plain, "bound_ms": bb,
-               "bound_by": bby, "library_ms": fb_lib,
-               "library_is": "sdpa forward + backward",
+               "bound_by": bby, "library_ms": bwd_lib,
+               "library_is": "sdpa backward",
+               "sdpa_fwd_bwd_ms": fb_lib,
                "tflops": 14.0 * hd * pairs * BH / bwd_ms / 1e9,
+               "share_of_bound": bb / bwd_ms,
                "max_abs_err": gerr}
     print(f"  flash_fwd {B, S, H, KH, hd} bf16: kernel {fwd_ms:.3f} ms "
-          f"({fwd_row['tflops']:.1f} TFLOP/s), plain {fwd_plain:.3f} ms, "
-          f"sdpa {fwd_lib:.3f} ms, bound {fb:.4f} ms ({fby}); max abs err "
-          f"{err:.2e} (lse {lse_err:.2e}), vs sdpa {sdpa_err:.2e}",
-          flush=True)
+          f"({fwd_row['tflops']:.1f} TFLOP/s, {100 * fb / fwd_ms:.1f} % of "
+          f"the bound), plain {fwd_plain:.3f} ms, sdpa {fwd_lib:.3f} ms, "
+          f"bound {fb:.4f} ms ({fby}); max abs err {err:.2e} (lse "
+          f"{lse_err:.2e}), vs sdpa {sdpa_err:.2e}", flush=True)
     print(f"  flash_bwd {B, S, H, KH, hd} bf16: kernel {bwd_ms:.3f} ms "
-          f"({bwd_row['tflops']:.1f} TFLOP/s of the 7 products), plain "
-          f"{bwd_plain:.3f} ms, sdpa fwd+bwd {fb_lib:.3f} ms, bound "
-          f"{bb:.4f} ms ({bby}); max abs err {gerr:.2e}; two runs "
+          f"({bwd_row['tflops']:.1f} TFLOP/s of the 7 products, "
+          f"{100 * bb / bwd_ms:.1f} % of the bound), plain {bwd_plain:.3f} "
+          f"ms, sdpa backward {bwd_lib:.3f} ms (fwd+bwd {fb_lib:.3f} ms), "
+          f"bound {bb:.4f} ms ({bby}); max abs err {gerr:.2e}; two runs "
           "bit-identical", flush=True)
     return max(err, gerr), fwd_row, bwd_row
 
@@ -603,7 +709,10 @@ def train_profile(torch, cfg, state, rt, seq=4096, batch=4, microbatch=2):
     b = SyntheticDataset(cfg, ShapeConfig("prof", seq, batch, "train"),
                          tcfg, seed=SEED).next()
     torch.cuda.synchronize()
-    groups = {"flash kernels": ("flash_",), **PROBE_GROUPS}
+    # before "matmul", whose keys include "sm90"
+    groups = {"flash kernels": ("flash_",) + tuple(f"sm90::{k}"
+                                                   for k in FLASH_SM90),
+              **PROBE_GROUPS}
     pwall, by_group, flash = profiled(torch, lambda: step(state, b), groups,
                                       "flash kernels")
     busy = sum(by_group.values())
@@ -715,8 +824,10 @@ def main(argv=None):
           flush=True)
     for src, log in build.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "error" in line.lower():
+            if "error" in line.lower() or "warning" in line.lower() or (
+                    "registers" in line and src != "flash_attention"):
                 print(f"  {src}: {line.strip()}")
+    sm90_build = check_build(build)
 
     # ---- phase 2
     cfg = registry.get("qwen2-0.5b")
@@ -740,7 +851,7 @@ def main(argv=None):
     if kernels_only:
         print(json.dumps({"tensor_stats": ts_rows, "hash": hash_rows,
                           "ringbuf": rb_rows, "flash_fwd": fa_fwd,
-                          "flash_bwd": fa_bwd}))
+                          "flash_bwd": fa_bwd, "flash_sm90": sm90_build}))
         print(json.dumps({"ok": True, "kernels_only": True}))
         return
 
@@ -882,7 +993,8 @@ def main(argv=None):
                 "max_abs_err": err, "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
-                "library_ms": row.get("library_ms"), "shapes": shapes}
+                "library_ms": row.get("library_ms"),
+                "library_is": row.get("library_is"), "shapes": shapes}
 
     report = {"kernels": [
         entry("tensor_stats", "tensor_stats.cu",
@@ -894,10 +1006,10 @@ def main(argv=None):
         entry("ringbuf_emit_batch", "ringbuf_emit.cu",
               "src/repro/kernels/ringbuf_emit.py:17",
               launches["ringbuf_emit_batch"], 0, rb_main, rb_rows),
-        entry("flash_fwd", "flash_attention.cu",
+        entry("flash_fwd", "flash_attention_sm90.cuh",
               "src/repro/kernels/flash_attention.py:35", tl["flash_fwd"],
               fa_fwd["max_abs_err"], fa_fwd, [fa_fwd]),
-        entry("flash_bwd", "flash_attention.cu",
+        entry("flash_bwd", "flash_attention_sm90.cuh",
               "src/repro/kernels/flash_attention.py:130", tl["flash_bwd"],
               fa_bwd["max_abs_err"], fa_bwd, [fa_bwd]),
     ], "serve": {"served": len(served), "rejected": len(reqs) - len(served),
@@ -905,7 +1017,8 @@ def main(argv=None):
                  "tokens_per_s": tokens / wall, "events": engine_events,
                  **times},
         "train": train, "train_launches_of_serving_kernels": {
-            k: tl[k] for k in serving_kernels}}
+            k: tl[k] for k in serving_kernels},
+        "flash_sm90_build": sm90_build}
     print(json.dumps(report), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -3,8 +3,8 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled by its own
 `nvcc` process into `build/repro_torch_kernels/<name>-<digest>.so` at the
 root of the checkout, for `sm_90a` (Hopper). All the sources build in
-parallel; a library whose source and flags are unchanged is reused. Nothing
-here runs when the package is imported.
+parallel; a library whose source, headers (`csrc/*.cuh`) and flags are
+unchanged is reused. Nothing here runs when the package is imported.
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-BUILD_LOG: dict[str, str] = {}        # name -> nvcc/ptxas output
+BUILD_LOG: dict[str, str] = {}        # name -> nvcc/ptxas output (kept
+                                      # beside the library as <lib>.log)
 _LOCK = threading.Lock()
 
 
@@ -42,10 +43,13 @@ def nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+def path(name: str) -> Path:
+    """The library that source `name` builds into."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> float:
@@ -57,8 +61,10 @@ def build_all() -> float:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = {}
         for name in todo:
-            out = _target(name)
+            out = path(name)
             if out.exists():
+                log = out.with_suffix(".log")
+                BUILD_LOG[name] = log.read_text() if log.exists() else ""
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
             procs[name] = (subprocess.Popen(
@@ -72,11 +78,12 @@ def build_all() -> float:
             if p.returncode != 0:
                 errors.append(f"{name}: nvcc exited {p.returncode}\n{log}")
             else:
+                out.with_suffix(".log").write_text(log)
                 os.replace(tmp, out)
         if errors:
             raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
         for name in todo:
-            _LIBS[name] = ctypes.CDLL(str(_target(name)))
+            _LIBS[name] = ctypes.CDLL(str(path(name)))
         return time.perf_counter() - t0
 
 

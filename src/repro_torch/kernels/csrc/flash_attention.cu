@@ -10,20 +10,23 @@
 // Layout (the Pallas kernels'): q, o, do [BH, Sq, hd]; k, v [BKH, Skv, hd];
 // lse and delta [BH, Sq] in f32; q head bh reads kv head bh / rep with
 // rep = BH / BKH, which is the grouping [B, S, KH, R, hd] of the model code.
-// Inputs f32 or bf16; every product and every accumulator is f32; o, dq,
-// dk and dv are written in the inputs' type.
+// o, dq, dk and dv are written in the inputs' type.
 //
-// Bound on an H100: operations. At the training path's shape (B 2, S 4096,
-// 14 q heads, hd 64, bf16, causal) the forward does 60 GFLOP on 19 MB and
-// the least backward 150 GFLOP; both sit far above the ~295 operations per
-// byte at which the card stops being limited by its memory.
+// Dispatch by type, in the C entry points below:
+// - bf16 (the training path's type) launches the Hopper kernels of
+//   flash_attention_sm90.cuh: wgmma on swizzled bf16 tiles, cp.async rings,
+//   a balanced dkv grid; P and dS enter the tensor cores as two bf16 terms
+//   each (that file's note). A launch that fails returns its error;
+//   nothing gives way to the kernels below.
+// - f32 launches the FMA kernels below, which keep every product in f32 on
+//   the CUDA cores: TF32 tensor cores would not hold test_flash_kernel.py's
+//   f32 tolerances (2e-4 / 5e-4), and the smoke-width f32 training step runs
+//   through them. These are not a fallback for bf16.
 //
-// Design (a first, simple version): 64-row tiles of q and kv live in
-// shared memory as f32, and 256 threads each own a 4 x 4 patch of the
-// 64 x 64 score tile (rows ty + 16 i, columns tx + 16 j) and 4 x (hd / 16)
-// outputs. Products are f32 FMAs on the CUDA cores, not the tensor cores,
-// so the f32 rate (67 TFLOP/s) and shared-memory bandwidth bound them;
-// wgmma, TMA and warp specialisation are for a later version.
+// The FMA kernels (f32): 64-row tiles of q and kv live in shared memory,
+// and 256 threads each own a 4 x 4 patch of the 64 x 64 score tile (rows
+// ty + 16 i, columns tx + 16 j) and 4 x (hd / 16) outputs. Bound by the
+// f32 rate (67 TFLOP/s) and shared-memory bandwidth.
 //   forward: one block per (q tile, bh); loops over the kv tiles up to the
 //            diagonal (the causal skip of :48), online softmax in f32
 //            registers; masked scores are -1e30 as in the Pallas kernel.
@@ -32,13 +35,17 @@
 //            its group and over the q tiles from the diagonal on, so the
 //            rep-group sum of :250-251 happens in registers.
 //   dq:      one block per (q tile, bh); loops over the kv tiles.
-// No atomics anywhere: repeated runs are bit-identical. Ragged edges (S
-// not a multiple of 64) are masked: rows past Sq are neither stored nor
-// counted, keys past Skv score -1e30.
+// No atomics anywhere, in either family: repeated runs are bit-identical.
+// Ragged edges (S not a multiple of 64) are masked: rows past Sq are
+// neither stored nor counted, keys past Skv score -1e30.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
+
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
@@ -54,12 +61,6 @@ __device__ __forceinline__ float ld(const float* p, long long i) {
 __device__ __forceinline__ float ld(const __nv_bfloat16* p, long long i) {
   return __bfloat162float(p[i]);
 }
-__device__ __forceinline__ void st(float* p, long long i, float v) {
-  p[i] = v;
-}
-__device__ __forceinline__ void st(__nv_bfloat16* p, long long i, float v) {
-  p[i] = __float2bfloat16(v);   // round to nearest even, as torch's .to()
-}
 
 // Sum or max over the 16 lanes that share ty (one half of a warp).
 __device__ __forceinline__ float row_sum(float v) {
@@ -73,8 +74,8 @@ __device__ __forceinline__ float row_max(float v) {
 
 // Rows [row0, row0 + kT) of a [S, HD] matrix into an f32 tile of pitch
 // HD + 1; rows past S are zero.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
+template <int HD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0,
                                           int S) {
   for (int i = threadIdx.x; i < kT * HD; i += kThreads) {
     const int r = i / HD, c = i % HD, g = row0 + r;
@@ -114,10 +115,10 @@ __device__ __forceinline__ void tile_abt(float (&s)[4][4], const float* A,
 
 // -------------------------------------------------------------- forward
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int Sq, int Skv, int rep,
                  int causal, float scale) {
   constexpr int P = HD + 1, ND = HD / 16;
@@ -132,7 +133,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int q0 = qi * kT;
   const long long kvoff = (long long)(bh / rep) * Skv * HD;
-  load_tile<T, HD>(Qs, q + (long long)bh * Sq * HD, q0, Sq);
+  load_tile<HD>(Qs, q + (long long)bh * Sq * HD, q0, Sq);
 
   float m[4], l[4], acc[4][ND];
 #pragma unroll
@@ -146,8 +147,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int ki = 0; ki < nk; ++ki) {
     const int k0 = ki * kT;
     __syncthreads();                 // the previous tile's readers are done
-    load_tile<T, HD>(Ks, k + kvoff, k0, Skv);
-    load_tile<T, HD>(Vs, v + kvoff, k0, Skv);
+    load_tile<HD>(Ks, k + kvoff, k0, Skv);
+    load_tile<HD>(Vs, v + kvoff, k0, Skv);
     __syncthreads();
     float s[4][4];
     tile_abt<HD>(s, Qs, Ks, ty, tx);
@@ -198,7 +199,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float lv = fmaxf(l[i], 1e-30f);
     const long long base = ((long long)bh * Sq + row) * HD;
 #pragma unroll
-    for (int c = 0; c < ND; ++c) st(o, base + tx + 16 * c, acc[i][c] / lv);
+    for (int c = 0; c < ND; ++c) o[base + tx + 16 * c] = acc[i][c] / lv;
     if (tx == 0) lse[(long long)bh * Sq + row] = m[i] + logf(lv);
   }
 }
@@ -248,7 +249,6 @@ __device__ __forceinline__ void tile_p_ds(
   }
 }
 
-template <typename T>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           int row0, int S) {
   if (threadIdx.x < kT) {
@@ -257,13 +257,13 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
+flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk,
-                 T* __restrict__ dv, int Sq, int Skv, int rep, int causal,
+                 const float* __restrict__ delta, float* __restrict__ dk,
+                 float* __restrict__ dv, int Sq, int Skv, int rep, int causal,
                  float scale) {
   constexpr int P = HD + 1, ND = HD / 16;
   extern __shared__ float smem[];
@@ -280,8 +280,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int k0 = ki * kT;
   const long long kvoff = (long long)bkh * Skv * HD;
-  load_tile<T, HD>(Ks, k + kvoff, k0, Skv);
-  load_tile<T, HD>(Vs, v + kvoff, k0, Skv);
+  load_tile<HD>(Ks, k + kvoff, k0, Skv);
+  load_tile<HD>(Vs, v + kvoff, k0, Skv);
 
   float gk[4][ND], gv[4][ND];       // rows ty + 16 i of the kv tile
 #pragma unroll
@@ -297,10 +297,10 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int qi = q_first; qi < nq; ++qi) {
       const int q0 = qi * kT;
       __syncthreads();
-      load_tile<T, HD>(Qs, q + qoff, q0, Sq);
-      load_tile<T, HD>(dOs, dout + qoff, q0, Sq);
-      load_rows<T>(Ls, lse + (long long)bh * Sq, q0, Sq);
-      load_rows<T>(Ds, delta + (long long)bh * Sq, q0, Sq);
+      load_tile<HD>(Qs, q + qoff, q0, Sq);
+      load_tile<HD>(dOs, dout + qoff, q0, Sq);
+      load_rows(Ls, lse + (long long)bh * Sq, q0, Sq);
+      load_rows(Ds, delta + (long long)bh * Sq, q0, Sq);
       __syncthreads();
       tile_p_ds<HD>(Ps, dSs, Qs, Ks, dOs, Vs, Ls, Ds, q0, k0, Sq, Skv,
                     causal, scale, ty, tx);
@@ -334,18 +334,18 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long long base = kvoff + (long long)row * HD;
 #pragma unroll
     for (int c = 0; c < ND; ++c) {
-      st(dk, base + tx + 16 * c, gk[i][c]);
-      st(dv, base + tx + 16 * c, gv[i][c]);
+      dk[base + tx + 16 * c] = gk[i][c];
+      dv[base + tx + 16 * c] = gv[i][c];
     }
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int Sq,
+                const float* __restrict__ delta, float* __restrict__ dq, int Sq,
                 int Skv, int rep, int causal, float scale) {
   constexpr int P = HD + 1, ND = HD / 16;
   extern __shared__ float smem[];
@@ -363,10 +363,10 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = qi * kT;
   const long long qoff = (long long)bh * Sq * HD;
   const long long kvoff = (long long)(bh / rep) * Skv * HD;
-  load_tile<T, HD>(Qs, q + qoff, q0, Sq);
-  load_tile<T, HD>(dOs, dout + qoff, q0, Sq);
-  load_rows<T>(Ls, lse + (long long)bh * Sq, q0, Sq);
-  load_rows<T>(Ds, delta + (long long)bh * Sq, q0, Sq);
+  load_tile<HD>(Qs, q + qoff, q0, Sq);
+  load_tile<HD>(dOs, dout + qoff, q0, Sq);
+  load_rows(Ls, lse + (long long)bh * Sq, q0, Sq);
+  load_rows(Ds, delta + (long long)bh * Sq, q0, Sq);
 
   float g[4][ND];
 #pragma unroll
@@ -377,8 +377,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int ki = 0; ki < nk; ++ki) {
     const int k0 = ki * kT;
     __syncthreads();
-    load_tile<T, HD>(Ks, k + kvoff, k0, Skv);
-    load_tile<T, HD>(Vs, v + kvoff, k0, Skv);
+    load_tile<HD>(Ks, k + kvoff, k0, Skv);
+    load_tile<HD>(Vs, v + kvoff, k0, Skv);
     __syncthreads();
     tile_p_ds<HD>(nullptr, dSs, Qs, Ks, dOs, Vs, Ls, Ds, q0, k0, Sq, Skv,
                   causal, scale, ty, tx);
@@ -403,7 +403,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row >= Sq) continue;
     const long long base = qoff + (long long)row * HD;
 #pragma unroll
-    for (int c = 0; c < ND; ++c) st(dq, base + tx + 16 * c, g[i][c]);
+    for (int c = 0; c < ND; ++c) dq[base + tx + 16 * c] = g[i][c];
   }
 }
 
@@ -422,69 +422,137 @@ constexpr size_t dq_smem() {
   return sizeof(float) * (4 * kT * (HD + 1) + kT * kSP + 2 * kT);
 }
 
-template <typename T, int HD>
-int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+template <int HD>
+int fwd_f32(const void* q, const void* k, const void* v, void* o, float* lse,
         int BH, int BKH, int Sq, int Skv, int causal, cudaStream_t st) {
-  auto kern = flash_fwd_kernel<T, HD>;
+  auto kern = flash_fwd_kernel<HD>;
   const size_t sm = fwd_smem<HD>();
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + kT - 1) / kT, BH);
   kern<<<grid, kThreads, sm, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Sq, Skv, BH / BKH,
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, Sq, Skv, BH / BKH,
       causal, 1.0f / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
-int bwd(const void* q, const void* k, const void* v, const void* o,
+template <int HD>
+int bwd_f32(const void* q, const void* k, const void* v, const void* o,
         const float* lse, const void* dout, float* delta, void* dq, void* dk,
         void* dv, int BH, int BKH, int Sq, int Skv, int causal,
         cudaStream_t st) {
   const int rep = BH / BKH;
   const float scale = 1.0f / sqrtf((float)HD);
   const long long rows = (long long)BH * Sq;
-  flash_delta_kernel<T, HD><<<(unsigned)((rows + kThreads / 32 - 1) /
+  flash_delta_kernel<float, HD><<<(unsigned)((rows + kThreads / 32 - 1) /
                                          (kThreads / 32)),
-                              kThreads, 0, st>>>((const T*)o, (const T*)dout,
+                              kThreads, 0, st>>>((const float*)o, (const float*)dout,
                                                  delta, rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
-  auto kdkv = flash_dkv_kernel<T, HD>;
+  auto kdkv = flash_dkv_kernel<HD>;
   e = cudaFuncSetAttribute(kdkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)dkv_smem<HD>());
   if (e != cudaSuccess) return (int)e;
   kdkv<<<dim3((Skv + kT - 1) / kT, BKH), kThreads, dkv_smem<HD>(), st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dk, (T*)dv, Sq, Skv, rep, causal, scale);
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, delta,
+      (float*)dk, (float*)dv, Sq, Skv, rep, causal, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
-  auto kdq = flash_dq_kernel<T, HD>;
+  auto kdq = flash_dq_kernel<HD>;
   e = cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)dq_smem<HD>());
   if (e != cudaSuccess) return (int)e;
   kdq<<<dim3((Sq + kT - 1) / kT, BH), kThreads, dq_smem<HD>(), st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dq, Sq, Skv, rep, causal, scale);
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, delta,
+      (float*)dq, Sq, Skv, rep, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// bf16: the Hopper kernels.
+bool aligned16(std::initializer_list<const void*> ps) {
+  for (const void* p : ps)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
+}
+
+template <int HD>
+int fwd_bf16(const void* q, const void* k, const void* v, void* o,
+             float* lse, int BH, int BKH, int Sq, int Skv, int causal,
+             cudaStream_t st) {
+  if (!aligned16({q, k, v, o})) return (int)cudaErrorMisalignedAddress;
+  auto kern = sm90::fwd_kernel<HD>;
+  constexpr int sm = sm90::fwd_smem<HD>();
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sm);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3((Sq + kT - 1) / kT, BH), sm90::kWG, sm, st>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, lse, Sq, Skv, BH / BKH,
+      causal, 1.0f / sqrtf((float)HD));
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int bwd_bf16(const void* q, const void* k, const void* v, const void* o,
+             const float* lse, const void* dout, float* delta, void* dq,
+             void* dk, void* dv, int BH, int BKH, int Sq, int Skv,
+             int causal, cudaStream_t st) {
+  using bf = __nv_bfloat16;
+  if (!aligned16({q, k, v, dout, dq, dk, dv}))
+    return (int)cudaErrorMisalignedAddress;
+  const int rep = BH / BKH;
+  const float scale = 1.0f / sqrtf((float)HD);
+  const long long rows = (long long)BH * Sq;
+  flash_delta_kernel<bf, HD><<<(unsigned)((rows + kThreads / 32 - 1) /
+                                          (kThreads / 32)),
+                               kThreads, 0, st>>>((const bf*)o,
+                                                  (const bf*)dout, delta,
+                                                  rows);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  auto kdkv = sm90::dkv_kernel<HD>;
+  constexpr int sdkv = sm90::dkv_smem<HD>();
+  e = cudaFuncSetAttribute(kdkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           sdkv);
+  if (e != cudaSuccess) return (int)e;
+  const int nk = (Skv + kT - 1) / kT;
+  kdkv<<<dim3((nk + 1) / 2, BKH), sm90::kWG * sm90::kDkvWG, sdkv, st>>>(
+      (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, lse, delta,
+      (bf*)dk, (bf*)dv, Sq, Skv, rep, causal, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  auto kdq = sm90::dq_kernel<HD>;
+  constexpr int sdq = sm90::dq_smem<HD>();
+  e = cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           sdq);
+  if (e != cudaSuccess) return (int)e;
+  kdq<<<dim3((Sq + kT - 1) / kT, BH), sm90::kWG, sdq, st>>>(
+      (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, lse, delta,
+      (bf*)dq, Sq, Skv, rep, causal, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-#define REPRO_FLASH_DISPATCH(CALL)                                     \
-  switch (hd) {                                                        \
-    case 16: return bf16 ? CALL(__nv_bfloat16, 16) : CALL(float, 16);  \
-    case 32: return bf16 ? CALL(__nv_bfloat16, 32) : CALL(float, 32);  \
-    case 64: return bf16 ? CALL(__nv_bfloat16, 64) : CALL(float, 64);  \
-    case 128: return bf16 ? CALL(__nv_bfloat16, 128) : CALL(float, 128); \
-    default: return (int)cudaErrorInvalidValue;                        \
+// bf16 -> the Hopper kernels, f32 -> the FMA kernels, by the `bf16` flag.
+#define REPRO_FLASH_DISPATCH(F32, BF16)                   \
+  switch (hd) {                                           \
+    case 16: return bf16 ? BF16(16) : F32(16);            \
+    case 32: return bf16 ? BF16(32) : F32(32);            \
+    case 64: return bf16 ? BF16(64) : F32(64);            \
+    case 128: return bf16 ? BF16(128) : F32(128);         \
+    default: return (int)cudaErrorInvalidValue;           \
   }
 
 // q [BH, Sq, hd], k/v [BKH, Skv, hd] -> o [BH, Sq, hd], lse f32 [BH, Sq].
-// hd in {16, 32, 64, 128}; BH a multiple of BKH. Returns a cudaError_t.
+// hd in {16, 32, 64, 128}; BH a multiple of BKH; bf16 pointers 16-byte
+// aligned. Returns a cudaError_t.
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, float* lse, int bf16, int BH,
                                int BKH, int Sq, int Skv, int hd, int causal,
@@ -492,9 +560,13 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
   if (BKH <= 0 || BH % BKH != 0 || Sq <= 0 || Skv <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-#define REPRO_FWD(T, HD) fwd<T, HD>(q, k, v, o, lse, BH, BKH, Sq, Skv, causal, st)
-  REPRO_FLASH_DISPATCH(REPRO_FWD)
+#define REPRO_FWD(HD) \
+  fwd_f32<HD>(q, k, v, o, lse, BH, BKH, Sq, Skv, causal, st)
+#define REPRO_FWD_BF16(HD) \
+  fwd_bf16<HD>(q, k, v, o, lse, BH, BKH, Sq, Skv, causal, st)
+  REPRO_FLASH_DISPATCH(REPRO_FWD, REPRO_FWD_BF16)
 #undef REPRO_FWD
+#undef REPRO_FWD_BF16
 }
 
 // Gradients of o = attention(q, k, v) for the output gradient `dout`, from
@@ -509,9 +581,13 @@ extern "C" int repro_flash_bwd(const void* q, const void* k, const void* v,
   if (BKH <= 0 || BH % BKH != 0 || Sq <= 0 || Skv <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-#define REPRO_BWD(T, HD)                                                  \
-  bwd<T, HD>(q, k, v, o, lse, dout, delta, dq, dk, dv, BH, BKH, Sq, Skv,  \
-             causal, st)
-  REPRO_FLASH_DISPATCH(REPRO_BWD)
+#define REPRO_BWD(HD)                                                       \
+  bwd_f32<HD>(q, k, v, o, lse, dout, delta, dq, dk, dv, BH, BKH, Sq, Skv,   \
+              causal, st)
+#define REPRO_BWD_BF16(HD)                                                  \
+  bwd_bf16<HD>(q, k, v, o, lse, dout, delta, dq, dk, dv, BH, BKH, Sq, Skv,  \
+               causal, st)
+  REPRO_FLASH_DISPATCH(REPRO_BWD, REPRO_BWD_BF16)
 #undef REPRO_BWD
+#undef REPRO_BWD_BF16
 }

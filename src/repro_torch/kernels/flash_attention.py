@@ -5,19 +5,31 @@ Replaces the Pallas kernels of `src/repro/kernels/flash_attention.py`:
 `_fwd_kernel` (:35, through `flash_fwd` :79) becomes `repro_flash_fwd`;
 `_dkv_kernel` (:130) and `_dq_kernel` (:172), through `flash_bwd` (:212),
 become `repro_flash_bwd`; the custom VJP `flash_attention_pallas` (:280)
-becomes `FlashAttention`, a `torch.autograd.Function`. The CUDA source is
-`csrc/flash_attention.cu`; the plain versions are `ref.flash_fwd` and
-`ref.flash_bwd`.
+becomes `FlashAttention`, a `torch.autograd.Function`. The CUDA sources are
+`csrc/flash_attention.cu` (the C entry points and the f32 kernels) and
+`csrc/flash_attention_sm90.cuh` (the bf16 kernels); the plain versions are
+`ref.flash_fwd` and `ref.flash_bwd`.
 
 Bound on an H100: operations (60 GFLOP forward and at least 150 GFLOP
-backward per layer at B 2, S 4096, 14 heads, hd 64, on 19 MB). Design: a
-first, simple version -- 64-row tiles in shared memory as f32, f32 FMAs on
-the CUDA cores, online softmax in registers; the dkv kernel sums the rep
-q heads of a kv head in registers and no kernel uses atomics, so the
-gradients are bit-identical from run to run. bf16 inputs are products in
-f32, as in the Pallas kernels; the rep-group sum of dk and dv is taken in
-f32 and rounded once, where the Pallas version rounds each q head's share
-to the input type first.
+backward per layer at B 2, S 4096, 14 heads, hd 64, on 19 MB; 0.061 and
+0.152 ms at the bf16 tensor-core rate). The C entry points dispatch by
+type (`route`):
+- bf16, the training path's type: Hopper kernels -- 64-row bf16 tiles in
+  swizzled shared memory filled by cp.async rings, every product a
+  `wgmma` on the tensor cores with f32 accumulators, the softmax on the
+  accumulator fragments in registers; a dkv grid balanced by pairing kv
+  tile ki with nk - 1 - ki. P and dS enter the tensor cores as two bf16
+  terms, hi = bf16(x) and lo = bf16(x - hi), about 16 significant bits;
+  the Pallas kernels and the plain versions keep them in f32. One bf16
+  term, as SDPA rounds P, would put o outside `TOL_BF16_O`
+  (tests/test_torch_flash.py).
+- f32: the first kernels of the port, f32 FMAs on the CUDA cores, which
+  hold test_flash_kernel.py's f32 tolerances (TF32 would not).
+Neither is a fallback for the other. No kernel uses atomics and the dkv
+kernels sum the rep q heads of a kv head in f32 in a fixed order, so the
+gradients are bit-identical from run to run; that sum is rounded once,
+where the Pallas version rounds each q head's share to the input type
+first.
 
 Layout: q [B*H, Sq, hd], k and v [B*KH, Skv, hd], with q head bh reading
 kv head bh // rep (rep = H // KH).
@@ -33,7 +45,29 @@ from . import build, ref
 FWD_LAUNCHES = 0              # one per forward launch
 BWD_LAUNCHES = 0              # one per backward (delta + dkv + dq) launch
 HEAD_DIMS = (16, 32, 64, 128)
+# the kernels against their plain versions, as (rtol, atol): f32 within
+# test_flash_kernel.py's tolerances (forward 2e-4, gradients 5e-4); bf16
+# o one bf16 rounding apart, lse (f32 on both sides) within 1e-4 absolute,
+# gradients with atol scaled by their largest magnitude (at least 1), and
+# within TOL_BF16_NORM in relative 2-norm per output
+TOL_F32 = (2e-4, 5e-4)
+TOL_BF16_O = (2e-2, 2e-3)
+TOL_LSE = (0.0, 1e-4)
+TOL_BF16_GRAD = (2e-2, 2e-3)
+TOL_BF16_NORM = 1e-2
+# input type -> the kernels the C entry points launch for it
+ROUTES = {torch.bfloat16: "sm90_wgmma", torch.float32: "fma_f32"}
 _FNS: dict = {}
+
+
+def route(dtype) -> str:
+    """The kernel family the C entry points launch for inputs of `dtype`
+    (their `bf16` flag is `route(dtype) == "sm90_wgmma"`); raises for a
+    type no kernel takes."""
+    if dtype not in ROUTES:
+        raise TypeError(f"flash attention: expected f32 or bf16, got "
+                        f"{dtype}")
+    return ROUTES[dtype]
 
 
 def _fn(symbol: str):
@@ -48,11 +82,11 @@ def _fn(symbol: str):
 def _check(q, k, v):
     """(BH, BKH, Sq, Skv, hd, bf16) of kernel-layout inputs; raises on
     anything the kernels do not take."""
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash attention: expected f32 or bf16, got "
-                        f"{q.dtype}")
+    bf16 = int(route(q.dtype) == "sm90_wgmma")
     for name, t in (("q", q), ("k", k), ("v", v)):
         build.require(t, f"flash attention {name}", q.dtype, 3, q.device)
+        if bf16:
+            _require_aligned(t, name)
     BH, Sq, hd = q.shape
     BKH, Skv, hdk = k.shape
     if tuple(v.shape) != (BKH, Skv, hdk) or hdk != hd:
@@ -64,7 +98,15 @@ def _check(q, k, v):
     if BKH == 0 or BH % BKH:
         raise ValueError(f"flash attention: {BH} q heads do not group over "
                          f"{BKH} kv heads")
-    return BH, BKH, Sq, Skv, hd, int(q.dtype == torch.bfloat16)
+    return BH, BKH, Sq, Skv, hd, bf16
+
+
+def _require_aligned(t, name: str) -> None:
+    """The bf16 kernels copy 16-byte chunks: a tensor must start on a
+    16-byte boundary (a view into the middle of a row may not)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"flash attention {name}: data must start on a "
+                         "16-byte boundary")
 
 
 def flash_fwd_cuda(q, k, v, causal: bool = True):
@@ -90,6 +132,9 @@ def flash_bwd_cuda(q, k, v, o, lse, do, causal: bool = True):
     BH, BKH, Sq, Skv, hd, bf16 = _check(q, k, v)
     build.require(o, "flash attention o", q.dtype, 3, q.device)
     build.require(do, "flash attention do", q.dtype, 3, q.device)
+    if bf16:
+        _require_aligned(o, "o")
+        _require_aligned(do, "do")
     build.require(lse, "flash attention lse", torch.float32, 2, q.device)
     if o.shape != q.shape or do.shape != q.shape or \
             tuple(lse.shape) != (BH, Sq):

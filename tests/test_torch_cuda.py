@@ -116,9 +116,10 @@ def _flash_case(cuda, BH, BKH, S, hd, dtype, seed):
 
 
 # (BH, BKH, S, hd): GQA rep 1, 2 and 7; S off the 64-row tile; the path's
-# head dim 64 and the smoke config's 16
+# head dim 64 and the smoke config's 16; one batch row of the training
+# path's shape (S 4096, 14 q / 2 kv heads)
 FLASH_CASES = [(4, 4, 128, 32), (8, 4, 256, 16), (14, 2, 200, 64),
-               (28, 4, 1024, 64), (4, 2, 100, 128)]
+               (28, 4, 1024, 64), (4, 2, 100, 128), (14, 2, 4096, 64)]
 
 
 @pytest.mark.parametrize("case", FLASH_CASES,
@@ -134,16 +135,17 @@ def test_flash_kernels_match_plain(cuda, case, dtype, causal):
     o, lse = TFA.flash_fwd_cuda(q, k, v, causal)
     wo, wlse = TREF.flash_fwd(q, k, v, causal, rep)
     # (rtol, atol) of o, lse and the gradients, whose atol scales with
-    # their largest magnitude: f32 as test_flash_kernel.py; bf16 one
-    # rounding of o apart, lse (f32 on both sides) within 1e-4, gradients
-    # with the rep-group sum rounded once in the kernel but per q head in
-    # the plain version, and within 1e-2 in relative norm
+    # their largest magnitude (TFA.TOL_*): f32 as test_flash_kernel.py;
+    # bf16 one rounding of o apart, lse (f32 on both sides) within 1e-4,
+    # gradients with P and dS rounded to bf16 and the rep-group sum rounded
+    # once in the kernel, and within 1e-2 in relative norm
     if dtype == "float32":
-        o_tol, lse_tol, g_tol, norm_tol = ((2e-4, 2e-4), (2e-4, 2e-4),
-                                           (5e-4, 5e-4), None)
+        tf, tb = TFA.TOL_F32
+        o_tol, lse_tol, g_tol, norm_tol = (tf, tf), (tf, tf), (tb, tb), None
     else:
-        o_tol, lse_tol, g_tol, norm_tol = ((2e-2, 2e-3), (0.0, 1e-4),
-                                           (2e-2, 2e-3), 1e-2)
+        o_tol, lse_tol, g_tol, norm_tol = (TFA.TOL_BF16_O, TFA.TOL_LSE,
+                                           TFA.TOL_BF16_GRAD,
+                                           TFA.TOL_BF16_NORM)
     np.testing.assert_allclose(o.float().cpu().numpy(),
                                wo.float().cpu().numpy(), *o_tol)
     np.testing.assert_allclose(lse.cpu().numpy(), wlse.cpu().numpy(),
@@ -174,7 +176,11 @@ def test_flash_attention_op_launches_kernels(cuda):
             for _ in range(2))
     ops.reset_launch_counts()
     o = ops.flash_attention(q, k, v, causal=True)
-    o.float().square().sum().backward()
+    loss = o.float().square().sum()
+    grads = torch.autograd.grad(loss, (q, k, v), retain_graph=True)
+    again = torch.autograd.grad(loss, (q, k, v))
     counts = ops.launch_counts()
-    assert counts["flash_fwd"] == 1 and counts["flash_bwd"] == 1
-    assert q.grad.dtype == torch.bfloat16 and k.grad.shape == k.shape
+    assert counts["flash_fwd"] == 1 and counts["flash_bwd"] == 2
+    assert grads[0].dtype == torch.bfloat16 and grads[1].shape == k.shape
+    for name, g_, a_ in zip(("dq", "dk", "dv"), grads, again):
+        assert torch.equal(g_, a_), f"{name} differs between two backwards"
