@@ -9,12 +9,18 @@ Phases:
      with nvcc (one process per source, in parallel); print each bf16 flash
      kernel's registers, spill bytes and shared memory (ptxas -v) and its
      HGMMA (wgmma) instructions in `cuobjdump -sass` of the library, and
-     fail if one has no HGMMA;
+     fail if one has no HGMMA; print the same ptxas numbers for every
+     tensor_stats and hash kernel, beside the dynamic shared memory each
+     asks for;
   2. hold each kernel against its plain PyTorch version on the card, at the
-     main paths' shapes and at stress shapes, and time both; flash
-     attention forward and backward also against
-     scaled_dot_product_attention's forward and its backward alone (the
-     yardsticks, never called by the port), and the backward twice for
+     main paths' shapes and at stress shapes, and time both: the device
+     time per launch (torch.profiler) beside the host's time per wrapper
+     call. tensor_stats through its dict and its row entry (the row's
+     Q47.16 lanes bit for bit `to_fx` of the kernel's stats), both body
+     routes at size and the one-block cut; the hash kernel on its shared
+     and its global route; flash attention forward and backward also
+     against scaled_dot_product_attention's forward and its backward alone
+     (the yardsticks, never called by the port), and the backward twice for
      bit-identity;
   3. serve qwen2-0.5b at full width (bf16, random weights from a seed):
      8 requests, 4 slots, max_seq 128, max_new 8, the sys_serve_admit filter
@@ -25,18 +31,25 @@ Phases:
      model is also served on the card and on the CPU and the two compared;
   4. replay the last decode step's tape through the scan and vectorized
      modes: their map states must equal the fused lane's bit for bit;
-  5. serve again warm (host clock) and once under torch.profiler: device
-     busy share and device time by kernel group;
+  5. serve again warm (host clock), with the probes and with no device
+     probe attached, and once under torch.profiler: device busy share,
+     device time by kernel group, and the device operations (kernels,
+     copies, fills) each collected event costs;
   6. train qwen2-0.5b at full width through launch/train.run_training:
      seq 4096, global batch 4 in microbatches of 2, AdamW, remat, 3 steps,
      the TRAIN_PROBES set on the fused lane (layer counters, a gradient-norm
      histogram, a loss record and a NaN guard); every attention layer runs
      the flash kernels, forward (and again in the remat recompute) and
      backward, and all five kernels must have launched. Then one more step
-     under torch.profiler: device busy share and time by kernel group;
+     under torch.profiler (device busy share, time by kernel group, device
+     operations per event), and two steps with no program attached;
   7. one training step of the smoke-width model (f32) at seq 4096 on the
      card and on the CPU from the same weights and batch: loss, gradient
      norm, updated parameters and maps compared.
+
+    python3 chip_smoke.py --paths --src DIR   # phases 5-6 only, on the
+                                              # port under DIR (another
+                                              # checkout's src/)
 
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}. Any failure exits
@@ -45,6 +58,7 @@ non-zero before printing any result. No JAX is imported.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -119,15 +133,17 @@ def _sm90_label(mangled: str):
     return None
 
 
-def ptxas_report(log: str) -> dict:
-    """{kernel: registers, spill bytes, shared memory} of the bf16 flash
-    kernels, from nvcc's -Xptxas=-v output."""
+def ptxas_report(log: str, label=None) -> dict:
+    """{kernel: registers, spill bytes, shared memory} of the kernels that
+    `label` names (default: the bf16 flash kernels), from nvcc's
+    -Xptxas=-v output."""
+    label = label or _sm90_label
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties "
                       r"for )(\w+)", line)
         if m:
-            cur = _sm90_label(m.group(1))
+            cur = label(m.group(1))
             if cur:
                 out.setdefault(cur, {})
             continue
@@ -198,55 +214,292 @@ def check_build(build) -> dict:
     return regs
 
 
+def _probe_label(mangled: str):
+    """`stats_kernel<bf16,bulk,row>`, `hash_shared` or `ringbuf_emit` for a
+    mangled probe kernel's name, else None."""
+    m = re.search(r"stats_kernelILb(\d)ELb(\d)ELb(\d)E", mangled)
+    if m:
+        flags = [f for f, on in zip(("bf16", "bulk", "row"), m.groups())
+                 if on == "1"]
+        return f"stats_kernel<{','.join(flags) or 'f32'}>"
+    m = re.search(r"(hash_shared|hash_global|ringbuf_emit)", mangled)
+    return m.group(1) if m else None
+
+
+def probe_build_report(build, TS, HU, cfg) -> dict:
+    """Phase 1's report on the probe kernels: ptxas registers, spills and
+    static shared memory, and the dynamic shared memory each launch asks
+    for (tensor_stats: the bulk ring above the one-block cut; hash: the
+    shared route at the path's map and batches; ringbuf: none)."""
+    out = {}
+    for src in ("tensor_stats", "hash_update", "ringbuf_emit"):
+        out.update(ptxas_report(build.BUILD_LOG.get(src, ""), _probe_label))
+    rows = 2 * cfg.num_layers + 1
+    dyn = {"stats_kernel": f"{TS.STAGES * TS.TILE_BYTES} B with the bulk "
+                           f"body above {TS.ONE_BLOCK_MAX} elements, else 0",
+           "hash_shared": "; ".join(
+               f"{24 * 256 + HU.batch_bytes(b)} B at n 256, B {b}"
+               for b in (rows, 4096)),
+           "hash_global": f"the batch table, {HU.batch_bytes(rows)} B at B "
+                          f"{rows}, when it fits, else 0 (scratch)",
+           "ringbuf_emit": "0"}
+    if len(out) != 11:
+        fail(f"phase 1: expected 8 tensor_stats, 2 hash and 1 ringbuf "
+             f"kernels, found {sorted(out)}")
+    for name, r in sorted(out.items()):
+        r["dynamic_smem"] = next(v for k, v in dyn.items() if k in name)
+        print(f"  {name}: {r.get('registers')} registers, spill stores "
+              f"{r.get('spill_stores')} B, loads {r.get('spill_loads')} B, "
+              f"static shared memory {r.get('static_smem')} B, dynamic "
+              f"{r['dynamic_smem']}", flush=True)
+    return out
+
+
 # --------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def check_tensor_stats(torch, TS, ref, shapes):
-    """Returns (max abs err, per-shape timings)."""
+def device_ms(torch, fn, reps: int, keys):
+    """(mean device ms per launch, launches) of the kernels whose name holds
+    one of `keys`, over `reps` calls of fn() under torch.profiler; (None,
+    0) when the profiler reports no such kernel twice."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, n, seen = 0.0, 0, []
+        for e in prof.key_averages():
+            if _is_device(e):
+                seen.append(e.key[:50])
+                if any(k in e.key for k in keys):
+                    us += _dev_us(e)
+                    n += e.count
+        if n:
+            return us / n / 1e3, n
+        print(f"  (the profiler reported no kernel named like {keys}; "
+              f"device events: {seen[:6]})", flush=True)
+    return None, 0
+
+
+def queued_ms(torch, fn, reps: int) -> float:
+    """Device ms per call of fn() run back to back: the stream is held by
+    torch.cuda._sleep while the host enqueues `reps` calls, so the events
+    around them time the device alone, the gaps between launches included.
+    The sleep is lengthened until the host finishes enqueuing first."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    cycles = int((time.perf_counter() - t0) * 4e9) + 4_000_000
+    for _ in range(6):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        held = not a.query()      # the device still sleeps: a queue formed
+        b.synchronize()
+        if held:
+            return a.elapsed_time(b) / reps
+        cycles *= 4
+    fail("queued_ms: the host did not finish enqueuing within the sleep")
+
+
+def host_us(torch, fn, reps: int) -> float:
+    """The host's microseconds per call of fn(): the enqueue, no wait for
+    the device (after a warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
+def timed(torch, row, fn, reps, keys, plain=None, plain_reps=1):
+    """Adds to `row`: profiler_ms (the kernels' device ms per launch, None
+    when the profiler reports none), launches_per_call (from the profiler),
+    queued_ms (device ms per call back to back, launch gaps included), ms
+    (profiler_ms, else queued_ms), host_us (per wrapper call), call_ms (CUDA
+    events around back-to-back calls, which the host's rate bounds for a
+    small kernel) and plain_ms."""
+    pms, n = device_ms(torch, fn, reps, keys)
+    qms = queued_ms(torch, fn, min(reps, 100))
+    row.update(profiler_ms=pms, launches_per_call=n / reps, queued_ms=qms,
+               ms=pms if pms is not None else qms,
+               host_us=host_us(torch, fn, min(reps, 200)),
+               call_ms=cuda_ms(torch, fn, reps))
+    if plain is not None:
+        row["plain_ms"] = cuda_ms(torch, plain, plain_reps,
+                                  warmup=min(plain_reps, 2))
+    return row
+
+
+STATS_KEYS = ("stats_kernel",)
+
+
+def _stats_input(torch, gen, shape, dtype, seed_bad):
+    x = torch.randn(shape, generator=gen, device="cuda") * 3.0
+    if seed_bad:
+        flat = x.view(-1)
+        idx = torch.randint(0, flat.numel(), (64,), generator=gen,
+                            device="cuda")
+        flat[idx[:16]] = float("nan")
+        flat[idx[16:24]] = float("inf")
+        flat[idx[24:32]] = float("-inf")
+    return x.to(dtype)
+
+
+def check_tensor_stats(torch, TS, ref, to_fx, shapes):
+    """Both entries against the plain versions at each shape: stats within
+    STATS_TOL, counts exact, the row's header and counts exact, its Q47.16
+    lanes within the tolerance of the plain row and bit for bit `to_fx` of
+    the kernel's own stats, three runs bit-identical. Timings of the row
+    entry (the collector's). Returns (max abs err, rows)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     worst, rows = 0.0, []
+    keys = ("mean", "rms", "min", "max", "absmax")
+    exact = [0, 1, 2, 3, 4, 10, 11, 12, 13, 14, 15]
     for shape, dtype, seed_bad in shapes:
-        x = torch.randn(shape, generator=gen, device="cuda") * 3.0
-        if seed_bad:
-            flat = x.view(-1)
-            idx = torch.randint(0, flat.numel(), (64,), generator=gen,
-                                device="cuda")
-            flat[idx[:16]] = float("nan")
-            flat[idx[16:24]] = float("inf")
-            flat[idx[24:32]] = float("-inf")
-        x = x.to(dtype)
+        x = _stats_input(torch, gen, shape, dtype, seed_bad)
+        what = f"tensor_stats {tuple(shape)} {dtype}"
         got = TS.tensor_stats_cuda(x)
         again = TS.tensor_stats_cuda(x)
+        row = TS.tensor_stats_row_cuda(x, 3, 1, 17)
+        rows3 = [TS.tensor_stats_row_cuda(x, 3, 1, 17) for _ in range(2)]
         want = ref.tensor_stats(x)
+        want_row = ref.tensor_stats_row(x, 3, 1, 17)
         torch.cuda.synchronize()
         for k in got:
             if not torch.equal(got[k], again[k]):
-                fail(f"tensor_stats {shape} {dtype}: {k} differs between "
-                     "two runs")
+                fail(f"{what}: {k} differs between two runs")
+        if not all(torch.equal(row, r) for r in rows3):
+            fail(f"{what}: the row differs between three runs")
         for k in ("nan_cnt", "inf_cnt"):
             if int(got[k]) != int(want[k]):
-                fail(f"tensor_stats {shape} {dtype}: {k} {int(got[k])} != "
-                     f"{int(want[k])}")
-        for k in ("mean", "rms", "min", "max", "absmax"):
+                fail(f"{what}: {k} {int(got[k])} != {int(want[k])}")
+        for k in keys:
             g, w = float(got[k]), float(want[k])
             if abs(g - w) > STATS_TOL + STATS_TOL * abs(w):
-                fail(f"tensor_stats {shape} {dtype}: {k} {g} vs plain {w}")
+                fail(f"{what}: {k} {g} vs plain {w}")
             worst = max(worst, abs(g - w))
-        n = x.numel()
+        if not torch.equal(row[exact], want_row[exact]):
+            fail(f"{what}: row header or counts {row.tolist()} vs plain "
+                 f"{want_row.tolist()}")
+        if not torch.equal(row[5:10], to_fx(torch.stack([got[k]
+                                                         for k in keys]))):
+            fail(f"{what}: the row's Q47.16 lanes are not to_fx of the "
+                 "kernel's stats")
+        g, w = row[5:10].double(), want_row[5:10].double()
+        if bool(((g - w).abs() > (STATS_TOL + STATS_TOL * w.abs())
+                 * 65536).any()):
+            fail(f"{what}: row Q47.16 lanes {row[5:10].tolist()} vs plain "
+                 f"{want_row[5:10].tolist()}")
+        n, nbytes = x.numel(), x.numel() * x.element_size()
         reps = 20 if n > 1 << 24 else 200
-        ms = cuda_ms(torch, lambda: TS.tensor_stats_cuda(x), reps)
-        plain = cuda_ms(torch, lambda: ref.tensor_stats(x), max(reps // 10, 5))
-        bms, by = bound_ms(n * x.element_size() + 5 * 4 + 2 * 8, 8.0 * n)
-        rows.append({"shape": list(shape), "dtype": str(dtype).split(".")[-1],
-                     "ms": ms, "plain_ms": plain, "bound_ms": bms,
-                     "bound_by": by})
-        print(f"  tensor_stats {tuple(shape)} {rows[-1]['dtype']}: kernel "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.5f} ms "
-              f"({by}), GB/s {n * x.element_size() / ms / 1e6:.1f}",
+        r = timed(torch, {"shape": list(shape),
+                          "dtype": str(dtype).split(".")[-1],
+                          "grid": TS.grid_for(n)},
+                  lambda: TS.tensor_stats_row_cuda(x, 3, 1, 17), reps,
+                  STATS_KEYS,
+                  plain=lambda: ref.tensor_stats_row(x, 3, 1, 17),
+                  plain_reps=max(reps // 10, 5))
+        r["bound_ms"], r["bound_by"] = bound_ms(nbytes + 16 * 8, 8.0 * n)
+        r["gb_per_s"] = nbytes / r["ms"] / 1e6
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        rows.append(r)
+        print(f"  tensor_stats row {tuple(shape)} {r['dtype']} (grid "
+              f"{r['grid']}): device {r['ms'] * 1e3:.2f} us a launch "
+              f"({r['launches_per_call']:.0f} a call; back to back "
+              f"{r['queued_ms'] * 1e3:.2f} us a call; {r['gb_per_s']:.1f} "
+              f"GB/s, {100 * r['share_of_bound']:.1f} % of the bound), host "
+              f"{r['host_us']:.1f} us a call, calls back-to-back on the host "
+              f"{r['call_ms'] * 1e3:.2f} us, plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms'] * 1e3:.4f} us ({r['bound_by']})",
               flush=True)
     return worst, rows
+
+
+def tensor_stats_bodies(torch, TS, ref, shapes):
+    """Device time per call back to back (queued_ms) of the two body routes
+    (bulk-copy ring, unrolled 16-byte loads) at the shapes above the
+    one-block cut, each held against the plain version. Returns {body:
+    [rows]}."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+    out = {b: [] for b in TS.BODIES}
+    for shape, dtype in shapes:
+        x = _stats_input(torch, gen, shape, dtype, True)
+        want = ref.tensor_stats(x)
+        nbytes = x.numel() * x.element_size()
+        for body in TS.BODIES:
+            got = TS.tensor_stats_cuda(x, body=body)
+            for k in ("mean", "rms", "min", "max", "absmax"):
+                g, w = float(got[k]), float(want[k])
+                if abs(g - w) > STATS_TOL + STATS_TOL * abs(w):
+                    fail(f"tensor_stats body {body} {shape}: {k} {g} vs {w}")
+            ms = queued_ms(torch, lambda: TS.tensor_stats_cuda(
+                x, body=body), 20)
+            out[body].append({"shape": list(shape),
+                              "dtype": str(dtype).split(".")[-1], "ms": ms,
+                              "gb_per_s": nbytes / ms / 1e6})
+        print(f"  tensor_stats bodies {tuple(shape)} "
+              f"{out['bulk'][-1]['dtype']}: " + ", ".join(
+                  f"{b} {out[b][-1]['ms'] * 1e3:.2f} us = "
+                  f"{out[b][-1]['gb_per_s']:.1f} GB/s" for b in TS.BODIES),
+              flush=True)
+    return out
+
+
+def tensor_stats_grid(torch, TS, sizes, rounded):
+    """Device us per call back to back (queued_ms), f32: one block against
+    the grid route at `sizes` around the one-block cut, and the grid as
+    launched against the grid not rounded to GRID_MULTIPLE at `rounded`
+    (ONE_BLOCK_MAX and GRID_MULTIPLE patched for the measurement only)."""
+    cut, mult = TS.ONE_BLOCK_MAX, TS.GRID_MULTIPLE
+
+    def us(x):
+        return queued_ms(torch, lambda: TS.tensor_stats_cuda(x), 50) * 1e3
+    out = {"cut": [], "rounding": []}
+    try:
+        for n in sizes:
+            x = torch.randn(n, device="cuda")
+            TS.ONE_BLOCK_MAX = 1 << 40
+            r = {"numel": n, "one_block_us": us(x)}
+            TS.ONE_BLOCK_MAX = 0
+            r.update(grid=TS.grid_for(n), grid_us=us(x))
+            out["cut"].append(r)
+        TS.ONE_BLOCK_MAX = 0
+        for n in rounded:
+            x = torch.randn(n, device="cuda")
+            r = {"numel": n, "grid": TS.grid_for(n), "grid_us": us(x)}
+            TS.GRID_MULTIPLE = 1
+            r.update(unrounded_grid=TS.grid_for(n), unrounded_us=us(x))
+            TS.GRID_MULTIPLE = mult
+            out["rounding"].append(r)
+    finally:
+        TS.ONE_BLOCK_MAX, TS.GRID_MULTIPLE = cut, mult
+    print("  one-block cut (f32, device us a call back to back): " + "; ".join(
+        f"{r['numel']}: one block {r['one_block_us']:.2f}, grid "
+        f"{r['grid']} {r['grid_us']:.2f}" for r in out["cut"]) +
+        f" (cut at {cut})", flush=True)
+    print("  grid rounding (f32, device us a call back to back): " + "; ".join(
+        f"{r['numel']}: grid {r['grid']} {r['grid_us']:.2f}, grid "
+        f"{r['unrounded_grid']} {r['unrounded_us']:.2f}"
+        for r in out["rounding"]), flush=True)
+    return out
 
 
 def _hash_case(torch, M, n, batch, rng, *, tombstones, full):
@@ -269,6 +522,9 @@ def _hash_case(torch, M, n, batch, rng, *, tombstones, full):
     return st, keys, deltas, valid
 
 
+HASH_KEYS = ("hash_shared", "hash_global")
+
+
 def check_hash(torch, HU, ref, M, cases):
     import numpy as np
     rng = np.random.default_rng(SEED)
@@ -277,6 +533,7 @@ def check_hash(torch, HU, ref, M, cases):
         st, keys, deltas, valid = _hash_case(torch, M, n, batch, rng, **kw)
         dev = [torch.as_tensor(a, device="cuda") for a in
                (st["keys"], st["used"], st["values"], keys, deltas, valid)]
+        route = HU.plan(n, batch)[0]
         got = HU.hash_fetch_add_batch_cuda(*dev)
         want = ref.hash_fetch_add_batch(*dev)
         oracle = {f: a.copy() for f, a in st.items()}
@@ -286,15 +543,21 @@ def check_hash(torch, HU, ref, M, cases):
                 fail(f"hash {label}: {f} differs from the plain version")
             if not np.array_equal(g.cpu().numpy(), oracle[f]):
                 fail(f"hash {label}: {f} differs from the numpy twin")
-        ms = cuda_ms(torch, lambda: HU.hash_fetch_add_batch_cuda(*dev), 50)
-        plain = cuda_ms(torch, lambda: ref.hash_fetch_add_batch(*dev), 1,
-                        warmup=1)
-        bms, by = bound_ms(batch * 17 + 6 * n * 8, 4.0 * batch)
-        rows.append({"case": label, "n": n, "batch": batch, "ms": ms,
-                     "plain_ms": plain, "bound_ms": bms, "bound_by": by})
-        print(f"  hash {label} n={n} B={batch}: kernel {ms:.4f} ms, plain "
-              f"{plain:.3f} ms, bound {bms:.6f} ms ({by}), bit-identical",
-              flush=True)
+        r = timed(torch, {"case": label, "n": n, "batch": batch,
+                          "route": route},
+                  lambda: HU.hash_fetch_add_batch_cuda(*dev), 50, HASH_KEYS,
+                  plain=lambda: ref.hash_fetch_add_batch(*dev))
+        r["bound_ms"], r["bound_by"] = bound_ms(batch * 17 + 6 * n * 8,
+                                                4.0 * batch)
+        rows.append(r)
+        print(f"  hash {label} n={n} B={batch} ({route} route): device "
+              f"{r['ms'] * 1e3:.2f} us a launch ({r['launches_per_call']:.0f}"
+              f" a call; back to back {r['queued_ms'] * 1e3:.2f} us a call), "
+              f"host {r['host_us']:.1f} us a call, calls back-to-back on the "
+              f"host {r['call_ms'] * 1e3:.2f} us, plain {r['plain_ms']:.3f} "
+              "ms, "
+              f"bound {r['bound_ms'] * 1e3:.4f} us ({r['bound_by']}), "
+              "bit-identical", flush=True)
     return rows
 
 
@@ -314,16 +577,21 @@ def check_ringbuf(torch, RB, ref, cases):
         for f, g, w in zip(("data", "head"), got, want):
             if not torch.equal(g, w):
                 fail(f"ringbuf {label}: {f} differs from the plain version")
-        ms = cuda_ms(torch, lambda: RB.ringbuf_emit_batch_cuda(*dev), 50)
-        plain = cuda_ms(torch, lambda: ref.ringbuf_emit_batch(*dev), 1,
-                        warmup=1)
-        bms, by = bound_ms(batch + batch * width * 8 + 2 * cap * width * 8
-                           + 16, 2.0 * batch)
-        rows.append({"case": label, "cap": cap, "batch": batch, "ms": ms,
-                     "plain_ms": plain, "bound_ms": bms, "bound_by": by})
-        print(f"  ringbuf {label} cap={cap} B={batch} W={width}: kernel "
-              f"{ms:.4f} ms, plain {plain:.3f} ms, bound {bms:.6f} ms "
-              f"({by}), bit-identical", flush=True)
+        r = timed(torch, {"case": label, "cap": cap, "batch": batch},
+                  lambda: RB.ringbuf_emit_batch_cuda(*dev), 50,
+                  ("ringbuf_emit",),
+                  plain=lambda: ref.ringbuf_emit_batch(*dev))
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            batch + batch * width * 8 + 2 * cap * width * 8 + 16,
+            2.0 * batch)
+        rows.append(r)
+        print(f"  ringbuf {label} cap={cap} B={batch} W={width}: device "
+              f"{r['ms'] * 1e3:.2f} us a launch (back to back "
+              f"{r['queued_ms'] * 1e3:.2f} us a call), host "
+              f"{r['host_us']:.1f} us a call, calls back-to-back on the host "
+              f"{r['call_ms'] * 1e3:.2f} us, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms'] * 1e3:.4f} us "
+              f"({r['bound_by']}), bit-identical", flush=True)
     return rows
 
 
@@ -470,7 +738,10 @@ def check_flash(torch, FA, ref):
 # --------------------------------------------------------------------------
 
 def serve(torch, cfg, device, params=None, *, requests=8, slots=4,
-          max_seq=128, max_new=8, admit_limit=12):
+          max_seq=128, max_new=8, admit_limit=12, probes=True):
+    """An engine and its requests. probes=False attaches no device probe;
+    the admission filter (a host-side syscall program) stays, so the same
+    requests are served."""
     from repro_torch.core.runtime import BpftimeRuntime
     from repro_torch.launch import serve as L
     from repro_torch.models import registry as MR
@@ -480,7 +751,8 @@ def serve(torch, cfg, device, params=None, *, requests=8, slots=4,
     pid = rt.load_asm("admit", L.admit_filter_text(admit_limit), [],
                       "filter")
     rt.attach(pid, "filter:sys_serve_admit")
-    L.attach_serve_probes(rt)
+    if probes:
+        L.attach_serve_probes(rt)
     if params is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(SEED)
@@ -524,18 +796,72 @@ def _dev_us(e) -> float:
     return 0.0
 
 
-PROBE_GROUPS = {"probe kernels": ("stats_partial", "stats_final", "hash_",
-                                  "ringbuf_emit"),
+def _is_device(e) -> bool:
+    return _dev_us(e) > 0 and e.device_type is not None and \
+        "cuda" in str(e.device_type).lower()
+
+
+# "stats_" holds the parent's stats_partial/stats_final and stats_kernel
+PROBE_GROUPS = {"probe kernels": ("stats_", "hash_", "ringbuf_emit"),
                 "matmul": ("gemm", "cutlass", "sm90", "cublas", "nvjet")}
+EMIT_RANGE = "chip_smoke.emit_tensor_event"
+
+
+@contextlib.contextmanager
+def emit_ranges(torch):
+    """Every Collector.emit_tensor_event inside a profiler range, so the
+    device operations it launches can be counted."""
+    from repro_torch.core import events as E
+    orig = E.Collector.emit_tensor_event
+
+    def ranged(self, *args, **kwargs):
+        with torch.profiler.record_function(EMIT_RANGE):
+            return orig(self, *args, **kwargs)
+    E.Collector.emit_tensor_event = ranged
+    try:
+        yield
+    finally:
+        E.Collector.emit_tensor_event = orig
+
+
+def collector_ops(prof) -> dict:
+    """Device operations (kernels, copies, fills) the collector launched in
+    a profiled window, per event: the tensor_stats kernels (named
+    stats_...; only the collector launches them on these paths) counted by
+    name, plus every other device operation that the profiler links to a
+    PyTorch operator inside an emit range."""
+    events = prof.events()
+    # each range also appears as a GPU-side annotation of the same name
+    emits = [e for e in events if e.name == EMIT_RANGE
+             and str(e.device_type).endswith("CPU")]
+    other = []
+
+    def walk(e):
+        other.extend(k.name for k in e.kernels if "stats_" not in k.name)
+        for c in e.cpu_children:
+            walk(c)
+    for e in emits:
+        walk(e)
+    stats = sum(e.count for e in prof.key_averages()
+                if _is_device(e) and "stats_" in e.key)
+    n = max(len(emits), 1)
+    names = {}
+    for k in other:
+        names[k[:60]] = names.get(k[:60], 0) + 1
+    return {"events": len(emits), "stats_kernels": stats,
+            "other_device_ops": len(other),
+            "device_ops_per_event": (stats + len(other)) / n,
+            "other_by_name": names}
 
 
 def profiled(torch, fn, groups, detail):
-    """fn() under torch.profiler: (wall s, device us by group, per-kernel
-    device ms and count of the group `detail`). Prints the ten kernels
+    """fn() under torch.profiler, every collector event in a range: (wall
+    s, device us by group, per-kernel device ms and count of the group
+    `detail`, the collector's device operations). Prints the ten kernels
     with the most device time."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with emit_ranges(torch), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -543,10 +869,10 @@ def profiled(torch, fn, groups, detail):
     by_group = {g: 0.0 for g in list(groups) + ["other"]}
     top, per = [], {}
     for e in prof.key_averages():
-        us = _dev_us(e)
-        if us <= 0 or e.device_type is None or "cuda" not in \
-                str(e.device_type).lower():
+        # an emit range's GPU-side annotation spans kernels counted already
+        if not _is_device(e) or e.key == EMIT_RANGE:
             continue
+        us = _dev_us(e)
         g = next((g for g, keys in groups.items()
                   if any(k in e.key.lower() for k in keys)), "other")
         by_group[g] += us
@@ -569,47 +895,73 @@ def profiled(torch, fn, groups, detail):
     for p in per.values():
         p["us_per_launch"] = p["device_ms"] * 1e3 / max(p["count"], 1)
     print(f"  {detail} on the device: {json.dumps(per)}", flush=True)
-    return pwall, by_group, per
+    ops = collector_ops(prof)
+    print(f"  collector: {ops['events']} events, {ops['stats_kernels']} "
+          f"tensor_stats kernels and {ops['other_device_ops']} other device "
+          f"operations = {ops['device_ops_per_event']:.2f} device operations "
+          f"per event; others by name {json.dumps(ops['other_by_name'])}",
+          flush=True)
+    return pwall, by_group, per, ops
 
 
-def timing(torch, cfg, params):
-    """A warm serving pass (host clock), then a profiled one: device busy
-    share and device time by kernel group. Kernel launches here are not
-    counted toward phase 3."""
-    engine, reqs = serve(torch, cfg, "cuda", params)
+def warm_serve(torch, cfg, params, probes):
+    """One warm serving pass on the host clock: (tokens, steps, wall s)."""
+    engine, reqs = serve(torch, cfg, "cuda", params, probes=probes)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     engine.submit_all(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    tokens = sum(len(r.out) for r in reqs if not r.rejected)
-    print(f"  warm: {tokens} tokens, {engine.step_count} decode steps in "
-          f"{wall:.3f} s = {tokens / wall:.1f} tokens/s, "
-          f"{wall / engine.step_count * 1e3:.1f} ms per step (prefill "
-          "included)", flush=True)
+    return sum(len(r.out) for r in reqs if not r.rejected), \
+        engine.step_count, wall
+
+
+def timing(torch, cfg, params):
+    """After one untimed pass, warm serving passes with the probes and with
+    no device probe, in turns (host clock), then a profiled one: device
+    busy share, device time by kernel group, device operations per
+    collected event. Kernel launches here are not counted toward phase
+    3."""
+    warm_serve(torch, cfg, params, True)
+    runs = {"probed": [], "unprobed": []}
+    for probes in (True, False, False, True):
+        runs["probed" if probes else "unprobed"].append(
+            warm_serve(torch, cfg, params, probes))
+    out = {}
+    for label, rs in runs.items():
+        tokens, steps = rs[0][0], rs[0][1]
+        ms = [w / st * 1e3 for _, st, w in rs]
+        out[label] = {"tokens": tokens, "steps": steps,
+                      "ms_per_step": ms,
+                      "tokens_per_s": [t / w for t, _, w in rs]}
+        print(f"  warm {label}: {tokens} tokens, {steps} decode steps; "
+              f"{', '.join(f'{m:.2f}' for m in ms)} ms per step (prefill "
+              "included)", flush=True)
     engine, reqs = serve(torch, cfg, "cuda", params)
     torch.cuda.synchronize()
-    pwall, by_group, probe = profiled(
+    pwall, by_group, probe, ops = profiled(
         torch, lambda: engine.submit_all(reqs), PROBE_GROUPS,
         "probe kernels")
     busy = sum(by_group.values())
-    return {"warm_tokens_per_s": tokens / wall,
-            "warm_ms_per_step": wall / engine.step_count * 1e3,
+    return {"warm_tokens_per_s": out["probed"]["tokens_per_s"][0],
+            "warm_ms_per_step": out["probed"]["ms_per_step"][0],
+            "warm": out,
             "profiled_wall_ms": pwall * 1e3, "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / 1e6 / pwall,
             "device_ms_by_group": {g: v / 1e3 for g, v in by_group.items()},
-            "probe_kernels_device": probe}
+            "probe_kernels_device": probe, "collector_ops": ops}
 
 
 # --------------------------------------------------------------------------
 # phases 6-7: training
 # --------------------------------------------------------------------------
 
-def _train_runtime():
+def _train_runtime(probes=True):
     from repro_torch.core.runtime import BpftimeRuntime
     from repro_torch.launch import train as T
     rt = BpftimeRuntime()
-    T.attach_train_probes(rt)
+    if probes:
+        T.attach_train_probes(rt)
     events = []
     stage = rt.probe_stage
 
@@ -699,7 +1051,8 @@ def train_full(torch, ops, cfg, steps=3, seq=4096, batch=4, microbatch=2):
 
 def train_profile(torch, cfg, state, rt, seq=4096, batch=4, microbatch=2):
     """One more warm step, after phase 6's launches were read, under
-    torch.profiler: device busy share and device time by kernel group."""
+    torch.profiler: device busy share, device time by kernel group and the
+    collector's device operations per event."""
     from repro_torch.configs.base import ShapeConfig, TrainConfig
     from repro_torch.data.pipeline import SyntheticDataset
     from repro_torch.train.train_step import make_train_step
@@ -713,13 +1066,37 @@ def train_profile(torch, cfg, state, rt, seq=4096, batch=4, microbatch=2):
     groups = {"flash kernels": ("flash_",) + tuple(f"sm90::{k}"
                                                    for k in FLASH_SM90),
               **PROBE_GROUPS}
-    pwall, by_group, flash = profiled(torch, lambda: step(state, b), groups,
-                                      "flash kernels")
+    pwall, by_group, flash, ops = profiled(
+        torch, lambda: step(state, b), groups, "flash kernels")
     busy = sum(by_group.values())
     return {"profiled_wall_ms": pwall * 1e3, "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / 1e6 / pwall,
             "device_ms_by_group": {g: v / 1e3 for g, v in by_group.items()},
-            "flash_kernels_device": flash}
+            "flash_kernels_device": flash, "collector_ops": ops}
+
+
+def train_unprobed(torch, cfg, steps=2, seq=4096, batch=4, microbatch=2):
+    """Steps of the same training run with no program attached (the
+    collector sees no wanted site, no probe stage runs): seconds per step
+    from the top of the step to its end, as phase 6 times the probed
+    run."""
+    from repro_torch.launch import train as T
+    rt, _, begins = _train_runtime(probes=False)
+    ends = []
+    torch.cuda.synchronize()
+    T.run_training(cfg.name, steps=steps, smoke=False, runtime=rt,
+                   probe_mode="fused", seq_len=seq, batch=batch,
+                   microbatch=microbatch, log_every=0,
+                   on_step=lambda s, st, m: ends.append(time.perf_counter()),
+                   device="cuda")
+    torch.cuda.synchronize()
+    step_s = [e - b for b, e in zip(begins, ends)]
+    steps = ", ".join(f"{t:.3f}" for t in step_s)
+    print(f"  no program attached: steps {steps}"
+          f" s = {', '.join(f'{batch * seq / t:.0f}' for t in step_s)} "
+          "tokens/s", flush=True)
+    return {"steps_s": step_s, "tokens_per_s": [batch * seq / t
+                                                for t in step_s]}
 
 
 def train_compare(torch, small, seq=4096, batch=2):
@@ -790,18 +1167,53 @@ def train_compare(torch, small, seq=4096, batch=2):
             "grad_leaf_rel_diff": d_g, "param_diff": d_p}
 
 
+def serve_paths(torch, cfg, params):
+    """Phase 5: serving timings with and without probes, and the profiled
+    pass (the collector's device operations per event)."""
+    print("phase 5: warm serving time, with and without probes, and where "
+          "the device time goes", flush=True)
+    return timing(torch, cfg, params)
+
+
+def train_paths(torch, ops, cfg):
+    """Phase 6: probed full-width training, one profiled step, and steps
+    with no program attached."""
+    print("phase 6: train qwen2-0.5b at full width, seq 4096, batch 4 in "
+          "microbatches of 2, remat, 3 steps", flush=True)
+    train, state, rt = train_full(torch, ops, cfg)
+    train["profiled_step"] = train_profile(torch, cfg, state, rt)
+    del state
+    torch.cuda.empty_cache()
+    train["unprobed"] = train_unprobed(torch, cfg)
+    torch.cuda.empty_cache()
+    return train
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     kernels_only = "--kernels" in argv
+    paths_only = "--paths" in argv
+    src = Path(argv[argv.index("--src") + 1]).resolve() if "--src" in argv \
+        else SRC
     try:
         import torch
     except ImportError:
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("CUDA is not available: this script needs one GPU")
-    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
-        fail(f"the port's sources are not beside this script ({SRC})")
-    sys.path.insert(0, str(SRC))
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail(f"the port's sources are not beside this script ({src})")
+    sys.path.insert(0, str(src))
     sys.modules.setdefault("jax", None)       # the port must not need JAX
     sys.modules.setdefault("repro", None)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -815,43 +1227,69 @@ def main(argv=None):
 
     name = torch.cuda.get_device_name(0)
     print(f"device: {name}, torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)",
-          flush=True)
+          f"{torch.version.cuda}, {torch.cuda.device_count()} device(s); "
+          f"the port from {src}", flush=True)
+    cfg = registry.get("qwen2-0.5b")
+    if paths_only:
+        t = build.build_all()
+        print(f"built {', '.join(build.SOURCES)} in {t:.1f} s", flush=True)
+        from repro_torch.models import registry as MR
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        params = MR.init_params(cfg, gen, "cuda")
+        times = serve_paths(torch, cfg, params)
+        del params
+        torch.cuda.empty_cache()
+        train = train_paths(torch, ops, cfg)
+        print(json.dumps({"serve": times, "train": train}), flush=True)
+        print(card_line(), flush=True)
+        print(json.dumps({"ok": True, "paths_only": True}), flush=True)
+        return
 
     # ---- phase 1
     t = build.build_all()
     print(f"phase 1: built {', '.join(build.SOURCES)} in {t:.1f} s",
           flush=True)
-    for src, log in build.BUILD_LOG.items():
+    for lib_name, log in build.BUILD_LOG.items():
         for line in log.splitlines():
-            if "error" in line.lower() or "warning" in line.lower() or (
-                    "registers" in line and src != "flash_attention"):
-                print(f"  {src}: {line.strip()}")
+            if "error" in line.lower() or "warning" in line.lower():
+                print(f"  {lib_name}: {line.strip()}")
     sm90_build = check_build(build)
+    probe_build = probe_build_report(build, TS, HU, cfg)
 
     # ---- phase 2
-    cfg = registry.get("qwen2-0.5b")
     L2 = 2 * cfg.num_layers + 1            # rows per probed decode step
+    d, pv = cfg.d_model, cfg.padded_vocab
+    bf16, f32 = torch.bfloat16, torch.float32
     print("phase 2: kernels against their plain versions", flush=True)
-    ts_err, ts_rows = check_tensor_stats(torch, TS, ref, [
-        ((4, 1, cfg.d_model), torch.bfloat16, False),
-        ((4, 1, cfg.d_model), torch.bfloat16, True),
-        ((4, 1, cfg.padded_vocab), torch.float32, True),
-        ((1 << 26,), torch.float32, True),
-    ])
+    ts_err, ts_rows = check_tensor_stats(torch, TS, ref, ref.to_fx, [
+        ((4, 1, d), bf16, False), ((4, 1, d), bf16, True),
+        ((4, 1, pv), f32, True), ((2, 4096, d), bf16, True),
+        ((1 << 26,), f32, True), ((1,), f32, False)])
+    ts_bodies = tensor_stats_bodies(torch, TS, ref, [
+        ((4, 1, pv), f32), ((2, 4096, d), bf16), ((1 << 26,), f32)])
+    ts_grid = tensor_stats_grid(
+        torch, TS, [4096, 8192, 12288, 16384, 32768, 65536],
+        [8192, 65536, 4 * pv, 1 << 21, 1 << 26])
+    tomb = dict(tombstones=True, full=False)
     hash_rows = check_hash(torch, HU, ref, M, [
         ("path", 256, L2, dict(tombstones=False, full=False)),
-        ("tombstones", 256, 4096, dict(tombstones=True, full=False)),
+        ("tombstones", 256, 4096, tomb),
         ("full", 256, 4096, dict(tombstones=False, full=True)),
+        ("global path", 16384, L2, tomb),
+        ("global 4096", 16384, 4096, tomb),
     ])
     rb_rows = check_ringbuf(torch, RB, ref, [
         ("path", 64, L2, 4), ("B<cap", 64, 40, 4), ("B>cap", 64, 4096, 4),
     ])
     _, fa_fwd, fa_bwd = check_flash(torch, FA, ref)
     if kernels_only:
-        print(json.dumps({"tensor_stats": ts_rows, "hash": hash_rows,
+        print(json.dumps({"tensor_stats": ts_rows,
+                          "tensor_stats_bodies": ts_bodies,
+                          "tensor_stats_grid": ts_grid, "hash": hash_rows,
                           "ringbuf": rb_rows, "flash_fwd": fa_fwd,
-                          "flash_bwd": fa_bwd, "flash_sm90": sm90_build}))
+                          "flash_bwd": fa_bwd, "flash_sm90": sm90_build,
+                          "probe_build": probe_build}))
         print(json.dumps({"ok": True, "kernels_only": True}))
         return
 
@@ -957,21 +1395,11 @@ def main(argv=None):
     print(f"  tape of {rows.shape[0]} events: scan, vectorized and fused "
           "map states bit-identical", flush=True)
 
-    # ---- phase 5
-    print("phase 5: warm serving time and where the device time goes",
-          flush=True)
-    times = timing(torch, cfg, engine.params)
     engine_steps, engine_events = engine.step_count, engine.events
+    times = serve_paths(torch, cfg, engine.params)
     del engine, x
     torch.cuda.empty_cache()
-
-    # ---- phase 6
-    print("phase 6: train qwen2-0.5b at full width, seq 4096, batch 4 in "
-          "microbatches of 2, remat, 3 steps", flush=True)
-    train, state, rt = train_full(torch, ops, cfg)
-    train["profiled_step"] = train_profile(torch, cfg, state, rt)
-    del state
-    torch.cuda.empty_cache()
+    train = train_paths(torch, ops, cfg)
 
     # ---- phase 7
     print("phase 7: one smoke-width training step at seq 4096, card vs CPU",
@@ -991,6 +1419,7 @@ def main(argv=None):
                 "source": f"src/repro_torch/kernels/csrc/{source}",
                 "replaces": replaces, "launches": launch_count,
                 "max_abs_err": err, "ms": row["ms"],
+                "host_us": row.get("host_us"),
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
                 "library_ms": row.get("library_ms"),
@@ -1018,14 +1447,10 @@ def main(argv=None):
                  **times},
         "train": train, "train_launches_of_serving_kernels": {
             k: tl[k] for k in serving_kernels},
-        "flash_sm90_build": sm90_build}
+        "tensor_stats_bodies": ts_bodies, "tensor_stats_grid": ts_grid,
+        "flash_sm90_build": sm90_build, "probe_build": probe_build}
     print(json.dumps(report), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    if smi.returncode != 0 or not smi.stdout.strip():
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -8,11 +8,11 @@ Model/framework code is annotated with zero-cost markers:
 
 With no collector active, a site is a Python `if` that immediately returns
 -- the "5-byte nop". When a program is attached to a site, an active
-`Collector` reduces the tensor to a 16-lane i64 stat row (the Hopper
-`tensor_stats` kernel on a CUDA tensor) and appends it to the step's event
-tape, on the device. One probe-execution stage per step then runs the
-attached eBPF programs over the tape (see runtime.py) -- events never
-cross the device/host boundary.
+`Collector` reduces the tensor to a 16-lane i64 stat row (on a CUDA tensor
+one launch of the Hopper `tensor_stats` kernel writes the whole row) and
+appends it to the step's event tape, on the device. One probe-execution
+stage per step then runs the attached eBPF programs over the tape (see
+runtime.py) -- events never cross the device/host boundary.
 
 Event row layout (i64 lanes; stats in saturating Q47.16 fixed point):
     0 site_id   1 kind    2 layer     3 step
@@ -30,28 +30,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
-from ..kernels.ref import STAT_KEYS
+from ..kernels.ref import (EVENT_WIDTH, FX_ONE, FX_SHIFT,  # noqa: F401
+                           STAT_KEYS, to_fx)
 
-EVENT_WIDTH = 16
 KIND_ENTRY = 0    # uprobe
 KIND_EXIT = 1     # uretprobe
 KIND_TRACEPOINT = 2
 
-FX_SHIFT = 16
-FX_ONE = 1 << FX_SHIFT
-_FX_MAX = (1 << 62) - 1
-
 I64 = torch.int64
-
-
-def to_fx(x):
-    """f32 -> saturating Q47.16 fixed-point i64 (NaN -> 0). The clip comes
-    before the cast: in f32 the bound rounds to 2**62, inside i64 range,
-    whereas an out-of-range float->int cast is undefined."""
-    x = torch.as_tensor(x).to(torch.float32)
-    v = torch.where(torch.isnan(x), torch.zeros_like(x), x) * float(FX_ONE)
-    v = v.clamp(-float(_FX_MAX), float(_FX_MAX))
-    return v.to(I64)
 
 
 def from_fx(v):
@@ -83,7 +69,8 @@ class SiteRegistry:
 
 
 SITES = SiteRegistry()
-_HEADERS: dict = {}     # (site, kind, layer, numel, device) -> i64[5]
+_HEADERS: dict = {}     # (site, kind, layer, numel, device) -> i64[5],
+                        # the stats_fn route's headers
 
 
 # --------------------------------------------------------------------------
@@ -101,9 +88,10 @@ class Collector:
         self.wanted = wanted
         self.rows: list = []
         self.layer_ctx = 0
-        # tensor -> dict of stats; default ops.tensor_stats (the kernel for
-        # a CUDA tensor, the plain version for a CPU tensor)
-        self.stats_fn = stats_fn or ops.tensor_stats
+        # tensor -> dict of stats. None: the row route, ops.tensor_stats_row
+        # (one kernel launch writes the row of a CUDA tensor, the plain
+        # version makes it for a CPU tensor)
+        self.stats_fn = stats_fn
 
     # ---- ambient management
     @classmethod
@@ -141,9 +129,9 @@ class Collector:
         self.rows.append(row)
 
     def _header(self, site_id, kind, numel, device):
-        """Lanes 0-4 of a row as a device tensor, made once per distinct
-        (site, kind, layer, numel, device) and kept, so a steady step copies
-        nothing from the host."""
+        """Lanes 0-4 of a row as a device tensor for the `stats_fn` route,
+        made once per distinct (site, kind, layer, numel, device) and kept,
+        so a steady step copies nothing from the host."""
         key = (site_id, kind, int(self.layer_ctx), numel, device)
         h = _HEADERS.get(key)
         if h is None:
@@ -156,8 +144,13 @@ class Collector:
     def emit_tensor_event(self, site_id: int, kind: int, tensor):
         """Stats of `tensor.detach()`: no probe enters the autograd graph,
         and a probed tensor that carries gradients saves nothing for the
-        backward pass."""
+        backward pass. With the default stats this is one kernel launch on
+        a CUDA tensor and no other device operation."""
         tensor = tensor.detach()
+        if self.stats_fn is None:
+            self.emit_row(ops.tensor_stats_row(tensor, site_id, kind,
+                                               int(self.layer_ctx)))
+            return
         st = self.stats_fn(tensor)
         fx = to_fx(torch.stack([st[k] for k in STAT_KEYS]))
         cnt = torch.stack([st["nan_cnt"], st["inf_cnt"]]).to(I64)

@@ -8,6 +8,7 @@ unchanged is reused. Nothing here runs when the package is imported.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -103,9 +104,53 @@ def function(name: str, symbol: str, argtypes: list):
 
 
 def stream_ptr(device) -> int:
-    """The handle of PyTorch's current stream on `device`, as an int."""
+    """The handle of PyTorch's current stream on `device`, as an int (the
+    raw getter PyTorch's own generated kernels use, where it exists: the
+    probe kernels' wrappers run on every event)."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    index = torch.device(device).index
+    return raw(torch.cuda.current_device() if index is None else index)
+
+
+def device_guard(device):
+    """`torch.cuda.device(device)`, or no context at all when `device` is
+    the current device already (the common case, and the cheaper one)."""
+    import torch
+    index = torch.device(device).index
+    if index is None or index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+_SCRATCH: dict = {}           # (name, device index) -> (buffer, stream)
+
+
+def device_scratch(name: str, device, nbytes: int):
+    """(buffer, stream): a zeroed u8 buffer of `nbytes` that kernel `name`
+    keeps on `device` for the life of the process (ticket counters a launch
+    leaves at 0, per-block partials), made on the first call, and the
+    current stream's handle. The kernels that use one assume one stream at
+    a time per device: a call from another stream than the buffer was made
+    on raises."""
+    import torch
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    stream = stream_ptr(dev)
+    entry = _SCRATCH.get((name, index))
+    if entry is None:
+        entry = (torch.zeros(nbytes, dtype=torch.uint8, device=dev), stream)
+        _SCRATCH[(name, index)] = entry
+    elif entry[1] != stream:
+        raise RuntimeError(f"{name}: its per-device scratch was made for "
+                           "another stream; the kernel takes one stream at a "
+                           "time per device")
+    if entry[0].numel() < nbytes:
+        raise RuntimeError(f"{name}: scratch of {entry[0].numel()} bytes, "
+                           f"{nbytes} asked")
+    return entry[0], stream
 
 
 def require(t, what: str, dtype, ndim: int, device=None) -> None:

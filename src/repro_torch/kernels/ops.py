@@ -20,12 +20,26 @@ KERNELS = {"tensor_stats": (ts, "LAUNCHES"),
            "flash_bwd": (fa, "BWD_LAUNCHES")}
 
 
+def _kernel_input(x):
+    """x as the tensor_stats kernel takes it: contiguous f32 or bf16."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.to(torch.float32)
+    return x.contiguous()
+
+
 def tensor_stats(x) -> dict:
     if on_card(x, "tensor_stats"):
-        if x.dtype not in (torch.float32, torch.bfloat16):
-            x = x.to(torch.float32)
-        return ts.tensor_stats_cuda(x.contiguous())
+        return ts.tensor_stats_cuda(_kernel_input(x))
     return ref.tensor_stats(x)
+
+
+def tensor_stats_row(x, site_id: int, kind: int, layer: int):
+    """The collector's i64[16] event row of `x`: one kernel launch for a
+    CUDA tensor, `ref.tensor_stats_row` for a CPU tensor."""
+    if on_card(x, "tensor_stats"):
+        return ts.tensor_stats_row_cuda(_kernel_input(x), site_id, kind,
+                                        layer)
+    return ref.tensor_stats_row(x, site_id, kind, layer)
 
 
 def hash_fetch_add_batch(keys_tbl, used_tbl, vals_tbl, keys, deltas, valid):

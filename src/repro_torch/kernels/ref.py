@@ -16,6 +16,22 @@ from ..core import u64 as U
 I64 = torch.int64
 F32 = torch.float32
 STAT_KEYS = ("mean", "rms", "min", "max", "absmax")
+EVENT_WIDTH = 16
+
+FX_SHIFT = 16
+FX_ONE = 1 << FX_SHIFT
+FX_MAX = (1 << 62) - 1
+
+
+def to_fx(x):
+    """f32 -> saturating Q47.16 fixed-point i64 (NaN -> 0). The clip comes
+    before the cast: in f32 the bound rounds to 2**62, inside i64 range,
+    whereas an out-of-range float->int cast is undefined. The row epilogue
+    of `csrc/tensor_stats.cu` computes the same bits."""
+    x = torch.as_tensor(x).to(F32)
+    v = torch.where(torch.isnan(x), torch.zeros_like(x), x) * float(FX_ONE)
+    v = v.clamp(-float(FX_MAX), float(FX_MAX))
+    return v.to(I64)
 
 
 # --------------------------------------------------------------------------
@@ -51,6 +67,20 @@ def tensor_stats(x) -> dict:
         "nan_cnt": nan.sum().to(I64),
         "inf_cnt": inf.sum().to(I64),
     }
+
+
+def tensor_stats_row(x, site_id: int, kind: int, layer: int):
+    """The collector's event row of `x`, i64[16]: site, kind, layer, 0
+    (the step, filled in later), numel, the five stats in Q47.16, the NaN
+    and Inf counts, four zeros (`core/events.py`'s row layout)."""
+    st = tensor_stats(x)
+    head = torch.tensor([site_id, kind, layer, 0, x.numel()], dtype=I64,
+                        device=x.device)
+    fx = to_fx(torch.stack([st[k] for k in STAT_KEYS]))
+    cnt = torch.stack([st["nan_cnt"], st["inf_cnt"]])
+    return torch.cat([head, fx, cnt,
+                      torch.zeros(EVENT_WIDTH - 12, dtype=I64,
+                                  device=x.device)])
 
 
 # --------------------------------------------------------------------------

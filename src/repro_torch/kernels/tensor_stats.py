@@ -1,16 +1,32 @@
-"""Fused tensor statistics -- the probe hot path, one kernel per collected
+"""Fused tensor statistics -- the probe hot path, one launch per collected
 event.
 
 Replaces the Pallas kernel `src/repro/kernels/tensor_stats.py:25`
 (`_kernel`, reached through `tensor_stats_pallas`). The CUDA source is
-`csrc/tensor_stats.cu`; its plain PyTorch version is `ref.tensor_stats`.
+`csrc/tensor_stats.cu`; its plain PyTorch versions are `ref.tensor_stats`
+(the dict of stats) and `ref.tensor_stats_row` (the collector's event row).
 
-Bound on an H100: bytes -- each element is read once and costs a handful
-of operations. Design: a fixed grid of blocks (a function of numel only)
-loops over strided shares with 16-byte loads and writes per-block partials
-(sum and sum of squares in double, min, max, NaN and Inf counts); a second
-pass folds them in block order. No float atomics, so repeated runs give
-identical rows; bf16 is widened inside the kernel.
+Bound on an H100: bytes at size -- each element is read once and costs a
+handful of operations -- and the launch for the collector's small tensors.
+Design: one launch over a grid that is a function of numel only. Up to
+ONE_BLOCK_MAX elements one block reduces the whole tensor; above it the
+blocks write partial records (sum and sum of squares in double, min, max,
+NaN and Inf counts) and the block that draws the last ticket of a
+per-device counter folds them in a fixed order. Each all-finite 16-byte
+unit is summed in f32 before it enters the double sums. No float atomics, so
+repeated runs give identical results; bf16 is widened inside the kernel.
+The body streams through unrolled 16-byte loads, four in flight per
+thread (BODY "ldg", the default), or through a ring of Hopper's bulk
+asynchronous copies ("bulk"); on one H100 the loads were as fast as the
+ring or faster at every measured size (chip_smoke.py phase 2, "tensor_stats
+bodies"), so the simpler design is the default and the ring stays
+selectable and measured. Two epilogues: the dict entry
+(`tensor_stats_cuda`) and the row entry (`tensor_stats_row_cuda`), which
+writes the whole 16-lane event row.
+
+The partials and the ticket counter are one scratch buffer per device,
+kept for the process: the kernel assumes one stream at a time per device
+(the port uses one), and a call from another stream raises.
 """
 from __future__ import annotations
 
@@ -23,46 +39,95 @@ from .ref import STAT_KEYS
 
 LAUNCHES = 0                  # incremented once per kernel launch
 BLOCK = 256                   # threads per block (kThreads in the source)
-MAX_GRID = 528                # 4 blocks per SM of an H100
-_PER_BLOCK = BLOCK * 16       # elements a block takes before the grid grows
-_FN = None
+SMS = 132                     # streaming multiprocessors of an H100 SXM
+BLOCKS_PER_SM = 3             # the most an SM holds with the 64 KB ring
+# Grids are rounded up to a multiple of GRID_MULTIPLE blocks: on one H100
+# every grid that was not a multiple of 32 took 2-3 us longer than the next
+# multiple of 32, at every size measured (chip_smoke.py phase 2, "grid
+# rounding"); the cause is not known.
+GRID_MULTIPLE = 32
+MAX_GRID = 12 * GRID_MULTIPLE  # 384: one wave at BLOCKS_PER_SM on 132 SMs
+# One block takes a tensor of up to this many elements whole: no partials,
+# no ticket. Measured on one H100 (chip_smoke.py phase 2, "one-block cut"):
+# one block is faster than a 32-block grid at 8,192 elements, slower at
+# 16,384.
+ONE_BLOCK_MAX = 12288
+_PER_BLOCK = 4096             # elements a block takes before the grid grows
+TILE_BYTES = 16384            # one bulk copy (kTileBytes)
+STAGES = 4                    # tiles in the ring (kStages)
+BODIES = ("bulk", "ldg")
+BODY = "ldg"                  # the body of every call above the cut
+_SCRATCH_BYTES = 16 + 40 * MAX_GRID
+_FN: dict = {}
 
 
 def grid_for(numel: int) -> int:
-    return max(1, min(MAX_GRID, -(-numel // _PER_BLOCK)))
+    if numel <= ONE_BLOCK_MAX:
+        return 1
+    grid = -(-numel // _PER_BLOCK)
+    return min(MAX_GRID, -(-grid // GRID_MULTIPLE) * GRID_MULTIPLE)
 
 
-def _fn():
-    global _FN
-    if _FN is None:
+def _bulk(numel: int, body: str) -> bool:
+    # a one-block tensor is a few KB: plain loads, no ring to set up
+    return body == "bulk" and grid_for(numel) > 1
+
+
+def _fn(symbol: str):
+    if symbol not in _FN:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        _FN = build.function("tensor_stats", "repro_tensor_stats",
-                             [p, i, ll, i, i, p, p, p, p])
-    return _FN
+        args = ([p, i, ll, i, i, p, p, p, p] if symbol == "repro_tensor_stats"
+                else [p, i, ll, i, i, p, ll, ll, ll, p, p])
+        _FN[symbol] = build.function("tensor_stats", symbol, args)
+    return _FN[symbol]
 
 
-def tensor_stats_cuda(x: torch.Tensor) -> dict:
-    """Launch the kernel on a contiguous f32 or bf16 CUDA tensor. Returns
-    0-dim tensors: f32 mean/rms/min/max/absmax, i64 nan_cnt/inf_cnt."""
-    global LAUNCHES
+def _check(x: torch.Tensor, body: str):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"tensor_stats: expected f32 or bf16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("tensor_stats: x must be contiguous")
-    build.require(x.view(-1), "tensor_stats x", x.dtype, 1)
+    if body not in BODIES:
+        raise ValueError(f"tensor_stats: body {body!r} not in {BODIES}")
+    if not x.is_cuda:
+        raise ValueError(f"tensor_stats x: expected a CUDA tensor, got "
+                         f"{x.device}")
+
+
+def _launch(symbol: str, x: torch.Tensor, body: str, *tail) -> None:
+    global LAUNCHES
     dev = x.device
     n = x.numel()
-    grid = grid_for(n)
-    part = torch.empty(6 * grid, dtype=torch.float64, device=dev)
-    out_f = torch.empty(5, dtype=torch.float32, device=dev)
-    out_i = torch.empty(2, dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        rc = _fn()(x.data_ptr(), int(x.dtype == torch.bfloat16), n,
-                   int(x.data_ptr() % 16 == 0), grid, part.data_ptr(),
-                   out_f.data_ptr(), out_i.data_ptr(), build.stream_ptr(dev))
+    scratch, stream = build.device_scratch("tensor_stats", dev,
+                                           _SCRATCH_BYTES)
+    with build.device_guard(dev):
+        rc = _fn(symbol)(x.data_ptr(), int(x.dtype == torch.bfloat16), n,
+                         grid_for(n), int(_bulk(n, body)), scratch.data_ptr(),
+                         *tail, stream)
     build.check(rc, "tensor_stats")
     LAUNCHES += 1
-    out = {k: out_f[j] for j, k in enumerate(STAT_KEYS)}
-    out["nan_cnt"] = out_i[0]
-    out["inf_cnt"] = out_i[1]
-    return out
+
+
+def tensor_stats_cuda(x: torch.Tensor, body: str = BODY) -> dict:
+    """Launch the kernel on a contiguous f32 or bf16 CUDA tensor. Returns
+    0-dim tensors: f32 mean/rms/min/max/absmax, i64 nan_cnt/inf_cnt (views
+    of one output buffer)."""
+    _check(x, body)
+    out = torch.empty(6, dtype=torch.int64, device=x.device)
+    out_f = out[2:].view(torch.float32)
+    _launch("repro_tensor_stats", x, body, out_f.data_ptr(), out.data_ptr())
+    res = {k: out_f[j] for j, k in enumerate(STAT_KEYS)}
+    res["nan_cnt"] = out[0]
+    res["inf_cnt"] = out[1]
+    return res
+
+
+def tensor_stats_row_cuda(x: torch.Tensor, site_id: int, kind: int,
+                          layer: int, body: str = BODY) -> torch.Tensor:
+    """The collector's event row of a contiguous f32 or bf16 CUDA tensor in
+    one launch: i64[16] as `ref.tensor_stats_row`."""
+    _check(x, body)
+    row = torch.empty(16, dtype=torch.int64, device=x.device)
+    _launch("repro_tensor_stats_row", x, body, int(site_id), int(kind),
+            int(layer), row.data_ptr())
+    return row

@@ -3,6 +3,9 @@ card. Every test is marked `cuda` and skips without a CUDA device. This
 file imports no JAX, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+A change to the probe kernels is brought up with `-k "stats or hash"`
+first.
 """
 import pytest
 
@@ -10,8 +13,8 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from repro_torch.core import maps as M  # noqa: E402
-from repro_torch.kernels import (hash_update as TH, ref as TREF,  # noqa: E402
+from repro_torch.core import events as TE, maps as M  # noqa: E402
+from repro_torch.kernels import (hash_update as TH, ops, ref as TREF,  # noqa: E402,E501
                                  ringbuf_emit as TRB, tensor_stats as TTS)
 
 TOL = 2e-5
@@ -57,6 +60,93 @@ def test_tensor_stats_kernel_unaligned_view(cuda):
     for k in STATS:
         np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=TOL,
                                    atol=TOL, err_msg=k)
+    row = TTS.tensor_stats_row_cuda(x, 1, 2, 3)
+    _check_row(row, x, got, (1, 2, 3))
+
+
+def _check_row(row, x, stats, header):
+    """Row against ref.tensor_stats_row: header and counts exact, the fx
+    lanes within the stats tolerance, and bit for bit to_fx of the
+    kernel's own stats (`stats`, the dict entry on the same tensor)."""
+    want = TREF.tensor_stats_row(x, *header)
+    assert row.dtype == torch.int64 and row.shape == (16,)
+    exact = [0, 1, 2, 3, 4, 10, 11, 12, 13, 14, 15]
+    assert torch.equal(row[exact], want[exact])
+    np.testing.assert_allclose(row[5:10].cpu().double().numpy(),
+                               want[5:10].cpu().double().numpy(), rtol=TOL,
+                               atol=TOL * TE.FX_ONE)
+    own = TE.to_fx(torch.stack([stats[k] for k in STATS]))
+    assert torch.equal(row[5:10], own)
+
+
+ROW_SHAPES = [(4, 1, 896), (4, 1, 152064), (2, 4096, 896), (1,), (1027,),
+              (TTS.ONE_BLOCK_MAX + 1,)]
+
+
+@pytest.mark.parametrize("shape", ROW_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("body", TTS.BODIES)
+def test_tensor_stats_row_kernel_matches_plain(cuda, shape, dtype, body):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(shape, generator=g, device=cuda) * 7
+    x.view(-1)[-3:] = torch.tensor([float("nan"), float("-inf"),
+                                    float("inf")], device=cuda)[-x.numel():]
+    x = x.to(getattr(torch, dtype))
+    row = TTS.tensor_stats_row_cuda(x, 5, 1, 23, body=body)
+    _check_row(row, x, TTS.tensor_stats_cuda(x, body=body), (5, 1, 23))
+
+
+@pytest.mark.parametrize("body", TTS.BODIES)
+def test_tensor_stats_repeats_bit_identical_across_grids(cuda, body):
+    """Three rounds over tensors at the one-block cut (-1, at, +1) and over
+    grids of different sizes called in turn give identical rows: a ticket
+    counter left unreset would fold the wrong partials."""
+    cut = TTS.ONE_BLOCK_MAX
+    sizes = [cut - 1, cut, cut + 1, 1 << 22, 40 * 4096 + 5, 1 << 26, 3,
+             100 * 4096]
+    g = torch.Generator(device=cuda).manual_seed(4)
+    xs = [torch.randn(n, generator=g, device=cuda) for n in sizes]
+    assert len({TTS.grid_for(n) for n in sizes}) >= 4
+    rounds = [[TTS.tensor_stats_row_cuda(x, 0, 0, 0, body=body) for x in xs]
+              for _ in range(3)]
+    for again in rounds[1:]:
+        for n, a, b in zip(sizes, rounds[0], again):
+            assert torch.equal(a, b), n
+    for x, row in zip(xs, rounds[0]):
+        _check_row(row, x, TTS.tensor_stats_cuda(x, body=body), (0, 0, 0))
+
+
+def test_tensor_stats_scratch_is_for_one_stream(cuda):
+    x = torch.randn(100, device=cuda)
+    TTS.tensor_stats_cuda(x)
+    with torch.cuda.stream(torch.cuda.Stream()):
+        with pytest.raises(RuntimeError, match="stream"):
+            TTS.tensor_stats_cuda(x)
+
+
+def test_collector_one_launch_per_event(cuda):
+    """The collector's row route: one tensor_stats launch per event, and a
+    tape bit-identical to the stats_fn route's."""
+    sid = TE.SITES.get_or_create("cuda.rows")
+    g = torch.Generator(device=cuda).manual_seed(6)
+    xs = [torch.randn(4, 1, 896, generator=g, device=cuda).to(torch.bfloat16),
+          torch.randn(4, 1, 152064, generator=g, device=cuda),
+          torch.randn(1, device=cuda)]
+
+    def tape(stats_fn):
+        with TE.Collector({(sid, TE.KIND_TRACEPOINT)},
+                          stats_fn=stats_fn) as col:
+            for layer, x in enumerate(xs):
+                col.layer_ctx = layer
+                TE.probe_site("cuda.rows", x)
+            return col.take_all_rows()
+
+    ops.reset_launch_counts()
+    rows = tape(None)
+    assert ops.launch_counts()["tensor_stats"] == len(xs)
+    assert rows.shape == (len(xs), 16) and rows.is_cuda
+    assert torch.equal(rows, tape(ops.tensor_stats))
 
 
 def _hash_inputs(seed, n, batch, *, tombstones, full):
@@ -92,6 +182,96 @@ def test_hash_kernel_matches_plain_and_numpy(cuda, case):
                        TREF.hash_fetch_add_batch(*args)):
         assert torch.equal(g, w), f
         np.testing.assert_array_equal(g.cpu().numpy(), oracle[f])
+
+
+def _hash_check(cuda, st, keys, deltas, valid, route):
+    args = [torch.as_tensor(a, device=cuda) for a in
+            (st["keys"], st["used"], st["values"], keys, deltas, valid)]
+    before = [a.clone() for a in args[:3]]
+    got = TH.hash_fetch_add_batch_cuda(*args, route=route)
+    oracle = {f: a.copy() for f, a in st.items()}
+    M.n_hash_fetch_add_batch(oracle, keys, deltas, valid)
+    for f, g, w in zip(("keys", "used", "values"), got,
+                       TREF.hash_fetch_add_batch(*args)):
+        assert torch.equal(g, w), f
+        np.testing.assert_array_equal(g.cpu().numpy(), oracle[f])
+    for a, b in zip(args[:3], before):
+        assert torch.equal(a, b)             # the inputs are not written
+
+
+def _key_with_home(n, home, start):
+    """The first key from `start` up whose home slot in an n-slot table is
+    `home`."""
+    k = start
+    while M._np_hash_idx(k, n) != home:
+        k += 1
+    return k
+
+
+def _hidden_case(first):
+    """A 64-slot table where key K sits two slots past its home with an
+    empty slot between (hidden from a lookup), and a batch in which a new
+    key M, whose home is that empty slot, comes before (first="M") or after
+    (first="K") K's events. Sequentially, K matches its hidden slot once M
+    has filled the gap, else K is inserted into the gap."""
+    n, h = 64, 10
+    st = M.init_state_np(M.MapSpec("h", M.MapKind.HASH, n))
+    for s in range(n):
+        if s not in (h + 1, h + 5):
+            st["keys"][s] = 7000 + s
+            st["used"][s] = 1 if s % 9 else 2
+            st["values"][s] = s
+    kk = _key_with_home(n, h, 1 << 20)
+    st["keys"][h + 2], st["used"][h + 2], st["values"][h + 2] = kk, 1, 100
+    mk = _key_with_home(n, h + 1, 1 << 30)
+    nk = _key_with_home(n, h + 3, 1 << 40)
+    order = [mk, kk, kk, nk, mk] if first == "M" else [kk, mk, kk, nk, kk]
+    keys = np.array(order, dtype=np.int64)
+    deltas = np.array([3, 5, 7, 11, 13], dtype=np.int64)
+    return st, keys, deltas, np.ones(5, dtype=bool)
+
+
+HASH_BATCHES = [0, 1, 49, 1024, 1025, 4096]
+
+
+@pytest.mark.parametrize("route", TH.ROUTES)
+@pytest.mark.parametrize("batch", HASH_BATCHES)
+def test_hash_kernel_routes_at_their_boundary(cuda, batch, route):
+    """The largest table of the shared route and the next size up, which
+    takes the global route, half full with tombstones."""
+    n = TH.max_shared_n(batch) + (route == "global")
+    assert TH.plan(n, batch)[0] == route
+    st, keys, deltas, valid = _hash_inputs(batch + 1, n, batch,
+                                           tombstones=True, full=False)
+    _hash_check(cuda, st, keys, deltas, valid, None)
+
+
+@pytest.mark.parametrize("route", TH.ROUTES)
+@pytest.mark.parametrize("case", ["same_key", "all_invalid", "tombstones",
+                                  "full", "full_tombstones"])
+@pytest.mark.parametrize("batch", HASH_BATCHES)
+def test_hash_kernel_cases(cuda, batch, case, route):
+    """A 256-slot table (the path's) on both routes: every key the same,
+    every event invalid, tombstones, a full table (new keys dropped)."""
+    st, keys, deltas, valid = _hash_inputs(
+        7 * batch + len(case), 256, batch,
+        tombstones="tombstones" in case, full=case.startswith("full"))
+    if case == "same_key":
+        keys = np.full(batch, keys[0] if batch else 5, dtype=np.int64)
+    if case == "all_invalid":
+        valid = np.zeros(batch, dtype=bool)
+    _hash_check(cuda, st, keys, deltas, valid, route)
+
+
+def test_hash_kernel_batch_table_in_scratch(cuda):
+    """A batch whose batch table exceeds shared memory: global route, the
+    batch table in a scratch tensor; new keys overflow the table."""
+    batch = 12000
+    assert TH.plan(256, batch) == ("global", False)
+    st, keys, deltas, valid = _hash_inputs(9, 256, batch, tombstones=True,
+                                           full=False)
+    keys[::97] = np.iinfo(np.int64).min      # the batch table's empty marker
+    _hash_check(cuda, st, keys, deltas, valid, None)
 
 
 @pytest.mark.parametrize("batch", [0, 40, 4096])
@@ -184,3 +364,11 @@ def test_flash_attention_op_launches_kernels(cuda):
     assert grads[0].dtype == torch.bfloat16 and grads[1].shape == k.shape
     for name, g_, a_ in zip(("dq", "dk", "dv"), grads, again):
         assert torch.equal(g_, a_), f"{name} differs between two backwards"
+
+
+@pytest.mark.parametrize("route", TH.ROUTES)
+@pytest.mark.parametrize("first", ["M", "K"])
+def test_hash_kernel_hidden_resident_key(cuda, first, route):
+    """A resident key hidden behind an empty slot takes the kernel's general
+    insert (a leader may match once an earlier insert fills the gap)."""
+    _hash_check(cuda, *_hidden_case(first), route)

@@ -407,11 +407,12 @@ def test_tape_identical_with_and_without_remat(weights, jax_three_steps,
         "uprobe:block")
     calls = []
 
-    def counting_stats(x):
+    def counting_row(x, *header):
         calls.append(x.numel())
-        return ref.tensor_stats(x)
+        return ref.tensor_stats_row(x, *header)
 
-    monkeypatch.setattr(ops, "tensor_stats", counting_stats)
+    # the collector's default route: one row (one kernel launch) per event
+    monkeypatch.setattr(ops, "tensor_stats_row", counting_row)
     runs = {}
     for remat in (False, True):
         calls.clear()
