@@ -16,8 +16,8 @@ Phases:
      main paths' shapes and at stress shapes, and time both: the device
      time per launch (torch.profiler) beside the host's time per wrapper
      call. tensor_stats through its dict and its row entry (the row's
-     Q47.16 lanes bit for bit `to_fx` of the kernel's stats), both body
-     routes at size and the one-block cut; the hash kernel on its shared
+     Q47.16 lanes bit for bit `to_fx` of the kernel's stats); the hash
+     kernel on its shared
      and its global route; flash attention forward and backward also
      against scaled_dot_product_attention's forward and its backward alone
      (the yardsticks, never called by the port), and the backward twice for
@@ -34,7 +34,8 @@ Phases:
   5. serve again warm (host clock), with the probes and with no device
      probe attached, and once under torch.profiler: device busy share,
      device time by kernel group, and the device operations (kernels,
-     copies, fills) each collected event costs;
+     copies, fills) each collected event costs, which must be exactly one
+     tensor_stats launch;
   6. train qwen2-0.5b at full width through launch/train.run_training:
      seq 4096, global batch 4 in microbatches of 2, AdamW, remat, 3 steps,
      the TRAIN_PROBES set on the fused lane (layer counters, a gradient-norm
@@ -42,14 +43,11 @@ Phases:
      the flash kernels, forward (and again in the remat recompute) and
      backward, and all five kernels must have launched. Then one more step
      under torch.profiler (device busy share, time by kernel group, device
-     operations per event), and two steps with no program attached;
+     operations per event, again exactly one), and two steps with no
+     program attached;
   7. one training step of the smoke-width model (f32) at seq 4096 on the
      card and on the CPU from the same weights and batch: loss, gradient
      norm, updated parameters and maps compared.
-
-    python3 chip_smoke.py --paths --src DIR   # phases 5-6 only, on the
-                                              # port under DIR (another
-                                              # checkout's src/)
 
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}. Any failure exits
@@ -215,36 +213,35 @@ def check_build(build) -> dict:
 
 
 def _probe_label(mangled: str):
-    """`stats_kernel<bf16,bulk,row>`, `hash_shared` or `ringbuf_emit` for a
+    """`stats_kernel<bf16,row>`, `hash_shared` or `ringbuf_emit` for a
     mangled probe kernel's name, else None."""
-    m = re.search(r"stats_kernelILb(\d)ELb(\d)ELb(\d)E", mangled)
+    m = re.search(r"stats_kernelILb(\d)ELb(\d)E", mangled)
     if m:
-        flags = [f for f, on in zip(("bf16", "bulk", "row"), m.groups())
+        flags = [f for f, on in zip(("bf16", "row"), m.groups())
                  if on == "1"]
         return f"stats_kernel<{','.join(flags) or 'f32'}>"
     m = re.search(r"(hash_shared|hash_global|ringbuf_emit)", mangled)
     return m.group(1) if m else None
 
 
-def probe_build_report(build, TS, HU, cfg) -> dict:
+def probe_build_report(build, HU, cfg) -> dict:
     """Phase 1's report on the probe kernels: ptxas registers, spills and
     static shared memory, and the dynamic shared memory each launch asks
-    for (tensor_stats: the bulk ring above the one-block cut; hash: the
-    shared route at the path's map and batches; ringbuf: none)."""
+    for (tensor_stats and ringbuf: none; hash: the shared route at the
+    path's map and batches)."""
     out = {}
     for src in ("tensor_stats", "hash_update", "ringbuf_emit"):
         out.update(ptxas_report(build.BUILD_LOG.get(src, ""), _probe_label))
     rows = 2 * cfg.num_layers + 1
-    dyn = {"stats_kernel": f"{TS.STAGES * TS.TILE_BYTES} B with the bulk "
-                           f"body above {TS.ONE_BLOCK_MAX} elements, else 0",
+    dyn = {"stats_kernel": "0",
            "hash_shared": "; ".join(
                f"{24 * 256 + HU.batch_bytes(b)} B at n 256, B {b}"
                for b in (rows, 4096)),
            "hash_global": f"the batch table, {HU.batch_bytes(rows)} B at B "
                           f"{rows}, when it fits, else 0 (scratch)",
            "ringbuf_emit": "0"}
-    if len(out) != 11:
-        fail(f"phase 1: expected 8 tensor_stats, 2 hash and 1 ringbuf "
+    if len(out) != 7:
+        fail(f"phase 1: expected 4 tensor_stats, 2 hash and 1 ringbuf "
              f"kernels, found {sorted(out)}")
     for name, r in sorted(out.items()):
         r["dynamic_smem"] = next(v for k, v in dyn.items() if k in name)
@@ -430,76 +427,6 @@ def check_tensor_stats(torch, TS, ref, to_fx, shapes):
               f"bound {r['bound_ms'] * 1e3:.4f} us ({r['bound_by']})",
               flush=True)
     return worst, rows
-
-
-def tensor_stats_bodies(torch, TS, ref, shapes):
-    """Device time per call back to back (queued_ms) of the two body routes
-    (bulk-copy ring, unrolled 16-byte loads) at the shapes above the
-    one-block cut, each held against the plain version. Returns {body:
-    [rows]}."""
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED + 2)
-    out = {b: [] for b in TS.BODIES}
-    for shape, dtype in shapes:
-        x = _stats_input(torch, gen, shape, dtype, True)
-        want = ref.tensor_stats(x)
-        nbytes = x.numel() * x.element_size()
-        for body in TS.BODIES:
-            got = TS.tensor_stats_cuda(x, body=body)
-            for k in ("mean", "rms", "min", "max", "absmax"):
-                g, w = float(got[k]), float(want[k])
-                if abs(g - w) > STATS_TOL + STATS_TOL * abs(w):
-                    fail(f"tensor_stats body {body} {shape}: {k} {g} vs {w}")
-            ms = queued_ms(torch, lambda: TS.tensor_stats_cuda(
-                x, body=body), 20)
-            out[body].append({"shape": list(shape),
-                              "dtype": str(dtype).split(".")[-1], "ms": ms,
-                              "gb_per_s": nbytes / ms / 1e6})
-        print(f"  tensor_stats bodies {tuple(shape)} "
-              f"{out['bulk'][-1]['dtype']}: " + ", ".join(
-                  f"{b} {out[b][-1]['ms'] * 1e3:.2f} us = "
-                  f"{out[b][-1]['gb_per_s']:.1f} GB/s" for b in TS.BODIES),
-              flush=True)
-    return out
-
-
-def tensor_stats_grid(torch, TS, sizes, rounded):
-    """Device us per call back to back (queued_ms), f32: one block against
-    the grid route at `sizes` around the one-block cut, and the grid as
-    launched against the grid not rounded to GRID_MULTIPLE at `rounded`
-    (ONE_BLOCK_MAX and GRID_MULTIPLE patched for the measurement only)."""
-    cut, mult = TS.ONE_BLOCK_MAX, TS.GRID_MULTIPLE
-
-    def us(x):
-        return queued_ms(torch, lambda: TS.tensor_stats_cuda(x), 50) * 1e3
-    out = {"cut": [], "rounding": []}
-    try:
-        for n in sizes:
-            x = torch.randn(n, device="cuda")
-            TS.ONE_BLOCK_MAX = 1 << 40
-            r = {"numel": n, "one_block_us": us(x)}
-            TS.ONE_BLOCK_MAX = 0
-            r.update(grid=TS.grid_for(n), grid_us=us(x))
-            out["cut"].append(r)
-        TS.ONE_BLOCK_MAX = 0
-        for n in rounded:
-            x = torch.randn(n, device="cuda")
-            r = {"numel": n, "grid": TS.grid_for(n), "grid_us": us(x)}
-            TS.GRID_MULTIPLE = 1
-            r.update(unrounded_grid=TS.grid_for(n), unrounded_us=us(x))
-            TS.GRID_MULTIPLE = mult
-            out["rounding"].append(r)
-    finally:
-        TS.ONE_BLOCK_MAX, TS.GRID_MULTIPLE = cut, mult
-    print("  one-block cut (f32, device us a call back to back): " + "; ".join(
-        f"{r['numel']}: one block {r['one_block_us']:.2f}, grid "
-        f"{r['grid']} {r['grid_us']:.2f}" for r in out["cut"]) +
-        f" (cut at {cut})", flush=True)
-    print("  grid rounding (f32, device us a call back to back): " + "; ".join(
-        f"{r['numel']}: grid {r['grid']} {r['grid_us']:.2f}, grid "
-        f"{r['unrounded_grid']} {r['unrounded_us']:.2f}"
-        for r in out["rounding"]), flush=True)
-    return out
 
 
 def _hash_case(torch, M, n, batch, rng, *, tombstones, full):
@@ -801,7 +728,6 @@ def _is_device(e) -> bool:
         "cuda" in str(e.device_type).lower()
 
 
-# "stats_" holds the parent's stats_partial/stats_final and stats_kernel
 PROBE_GROUPS = {"probe kernels": ("stats_", "hash_", "ringbuf_emit"),
                 "matmul": ("gemm", "cutlass", "sm90", "cublas", "nvjet")}
 EMIT_RANGE = "chip_smoke.emit_tensor_event"
@@ -901,6 +827,10 @@ def profiled(torch, fn, groups, detail):
           f"operations = {ops['device_ops_per_event']:.2f} device operations "
           f"per event; others by name {json.dumps(ops['other_by_name'])}",
           flush=True)
+    if not ops["events"] or ops["other_device_ops"] or \
+            ops["stats_kernels"] != ops["events"]:
+        fail("the collector must make exactly one tensor_stats launch and "
+             f"no other device operation per event: {ops}")
     return pwall, by_group, per, ops
 
 
@@ -1167,28 +1097,6 @@ def train_compare(torch, small, seq=4096, batch=2):
             "grad_leaf_rel_diff": d_g, "param_diff": d_p}
 
 
-def serve_paths(torch, cfg, params):
-    """Phase 5: serving timings with and without probes, and the profiled
-    pass (the collector's device operations per event)."""
-    print("phase 5: warm serving time, with and without probes, and where "
-          "the device time goes", flush=True)
-    return timing(torch, cfg, params)
-
-
-def train_paths(torch, ops, cfg):
-    """Phase 6: probed full-width training, one profiled step, and steps
-    with no program attached."""
-    print("phase 6: train qwen2-0.5b at full width, seq 4096, batch 4 in "
-          "microbatches of 2, remat, 3 steps", flush=True)
-    train, state, rt = train_full(torch, ops, cfg)
-    train["profiled_step"] = train_profile(torch, cfg, state, rt)
-    del state
-    torch.cuda.empty_cache()
-    train["unprobed"] = train_unprobed(torch, cfg)
-    torch.cuda.empty_cache()
-    return train
-
-
 def card_line() -> str:
     """The card's name and power limit as nvidia-smi prints them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1202,18 +1110,15 @@ def card_line() -> str:
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     kernels_only = "--kernels" in argv
-    paths_only = "--paths" in argv
-    src = Path(argv[argv.index("--src") + 1]).resolve() if "--src" in argv \
-        else SRC
     try:
         import torch
     except ImportError:
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("CUDA is not available: this script needs one GPU")
-    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
-        fail(f"the port's sources are not beside this script ({src})")
-    sys.path.insert(0, str(src))
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail(f"the port's sources are not beside this script ({SRC})")
+    sys.path.insert(0, str(SRC))
     sys.modules.setdefault("jax", None)       # the port must not need JAX
     sys.modules.setdefault("repro", None)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1227,25 +1132,9 @@ def main(argv=None):
 
     name = torch.cuda.get_device_name(0)
     print(f"device: {name}, torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}, {torch.cuda.device_count()} device(s); "
-          f"the port from {src}", flush=True)
+          f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)",
+          flush=True)
     cfg = registry.get("qwen2-0.5b")
-    if paths_only:
-        t = build.build_all()
-        print(f"built {', '.join(build.SOURCES)} in {t:.1f} s", flush=True)
-        from repro_torch.models import registry as MR
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(SEED)
-        params = MR.init_params(cfg, gen, "cuda")
-        times = serve_paths(torch, cfg, params)
-        del params
-        torch.cuda.empty_cache()
-        train = train_paths(torch, ops, cfg)
-        print(json.dumps({"serve": times, "train": train}), flush=True)
-        print(card_line(), flush=True)
-        print(json.dumps({"ok": True, "paths_only": True}), flush=True)
-        return
-
     # ---- phase 1
     t = build.build_all()
     print(f"phase 1: built {', '.join(build.SOURCES)} in {t:.1f} s",
@@ -1255,7 +1144,7 @@ def main(argv=None):
             if "error" in line.lower() or "warning" in line.lower():
                 print(f"  {lib_name}: {line.strip()}")
     sm90_build = check_build(build)
-    probe_build = probe_build_report(build, TS, HU, cfg)
+    probe_build = probe_build_report(build, HU, cfg)
 
     # ---- phase 2
     L2 = 2 * cfg.num_layers + 1            # rows per probed decode step
@@ -1266,11 +1155,6 @@ def main(argv=None):
         ((4, 1, d), bf16, False), ((4, 1, d), bf16, True),
         ((4, 1, pv), f32, True), ((2, 4096, d), bf16, True),
         ((1 << 26,), f32, True), ((1,), f32, False)])
-    ts_bodies = tensor_stats_bodies(torch, TS, ref, [
-        ((4, 1, pv), f32), ((2, 4096, d), bf16), ((1 << 26,), f32)])
-    ts_grid = tensor_stats_grid(
-        torch, TS, [4096, 8192, 12288, 16384, 32768, 65536],
-        [8192, 65536, 4 * pv, 1 << 21, 1 << 26])
     tomb = dict(tombstones=True, full=False)
     hash_rows = check_hash(torch, HU, ref, M, [
         ("path", 256, L2, dict(tombstones=False, full=False)),
@@ -1284,9 +1168,7 @@ def main(argv=None):
     ])
     _, fa_fwd, fa_bwd = check_flash(torch, FA, ref)
     if kernels_only:
-        print(json.dumps({"tensor_stats": ts_rows,
-                          "tensor_stats_bodies": ts_bodies,
-                          "tensor_stats_grid": ts_grid, "hash": hash_rows,
+        print(json.dumps({"tensor_stats": ts_rows, "hash": hash_rows,
                           "ringbuf": rb_rows, "flash_fwd": fa_fwd,
                           "flash_bwd": fa_bwd, "flash_sm90": sm90_build,
                           "probe_build": probe_build}))
@@ -1395,11 +1277,23 @@ def main(argv=None):
     print(f"  tape of {rows.shape[0]} events: scan, vectorized and fused "
           "map states bit-identical", flush=True)
 
+    # ---- phase 5
+    print("phase 5: warm serving time, with and without probes, and where "
+          "the device time goes", flush=True)
+    times = timing(torch, cfg, engine.params)
     engine_steps, engine_events = engine.step_count, engine.events
-    times = serve_paths(torch, cfg, engine.params)
     del engine, x
     torch.cuda.empty_cache()
-    train = train_paths(torch, ops, cfg)
+
+    # ---- phase 6
+    print("phase 6: train qwen2-0.5b at full width, seq 4096, batch 4 in "
+          "microbatches of 2, remat, 3 steps", flush=True)
+    train, state, rt = train_full(torch, ops, cfg)
+    train["profiled_step"] = train_profile(torch, cfg, state, rt)
+    del state
+    torch.cuda.empty_cache()
+    train["unprobed"] = train_unprobed(torch, cfg)
+    torch.cuda.empty_cache()
 
     # ---- phase 7
     print("phase 7: one smoke-width training step at seq 4096, card vs CPU",
@@ -1447,7 +1341,6 @@ def main(argv=None):
                  **times},
         "train": train, "train_launches_of_serving_kernels": {
             k: tl[k] for k in serving_kernels},
-        "tensor_stats_bodies": ts_bodies, "tensor_stats_grid": ts_grid,
         "flash_sm90_build": sm90_build, "probe_build": probe_build}
     print(json.dumps(report), flush=True)
     print(card_line(), flush=True)

@@ -20,13 +20,12 @@
 //    A 16-byte unit whose values are all finite is summed in f32 first and
 //    enters the double sums once: per-element double work would bound the
 //    kernel below the memory's rate (bf16 has 8 values per unit).
-//  - Body of the tensor (the 16-byte aligned middle): either a ring of
-//    kStages shared-memory tiles fed by Hopper's 1-D bulk asynchronous
-//    copies (cp.async.bulk ... mbarrier::complete_tx, one issuing thread
-//    per block; threads reduce one tile while the next ones land), or
-//    unrolled 16-byte loads with kUnroll in flight per thread. The
-//    unaligned head and the tail (< 16 bytes each) take plain loads in
-//    block 0.
+//  - Body of the tensor (the 16-byte aligned middle): unrolled 16-byte
+//    loads, kUnroll in flight per thread. A ring of Hopper's bulk
+//    asynchronous copies (cp.async.bulk into shared memory, mbarrier
+//    completion) was measured against these loads on one H100 and was
+//    never faster (PERF.md, PR 14), so it was not kept. The unaligned head
+//    and the tail (< 16 bytes each) take plain loads in block 0.
 //  - Each block reduces with warp shuffles in a fixed order. With one block
 //    that is the result. With more, each block writes its partial record
 //    and takes a ticket (an acquire-release atomic add) on a per-device
@@ -49,10 +48,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kTileBytes = 16384;          // one bulk copy, 1024 16-byte units
-constexpr int kTileUnits = kTileBytes / 16;
-constexpr int kStages = 4;                 // 64 KB of ring per block
-constexpr int kUnroll = 4;                 // 16-byte loads in flight (ldg body)
+constexpr int kUnroll = 4;                 // 16-byte loads in flight
 constexpr int kScratchHead = 16;           // ticket counter, then partials
 constexpr float kFxOne = 65536.0f;
 constexpr float kFxMax = 4611686018427387904.0f;  // 2^62 - 1 rounded to f32
@@ -186,100 +182,12 @@ __device__ __forceinline__ void block_reduce(Acc& a, Acc* red) {
   __syncthreads();   // red may be reused
 }
 
-// ---- mbarrier and bulk-copy primitives (PTX ISA 8.0, sm_90)
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void bulk_load(unsigned dst, const void* src,
-                                          unsigned bytes, unsigned bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
 // ---- the body: 16-byte units [0, units) from a 16-byte aligned pointer
-
-// Tile t (kTileUnits units) belongs to block t % grid; a block streams its
-// tiles through a ring of kStages buffers.
-template <bool kBf16>
-__device__ __forceinline__ void body_bulk(Acc& a, const uint4* xv,
-                                          long long units,
-                                          unsigned char* ring,
-                                          unsigned long long* bars) {
-  const long long ntiles = (units + kTileUnits - 1) / kTileUnits;
-  const long long mine =
-      ntiles > blockIdx.x ? (ntiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
-  if (mine == 0) return;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) mbar_init(smem_addr(bars + s), 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  auto issue = [&](long long i) {
-    const long long u0 = (blockIdx.x + i * gridDim.x) * kTileUnits;
-    const long long nu = min((long long)kTileUnits, units - u0);
-    const int s = (int)(i % kStages);
-    const unsigned bar = smem_addr(bars + s);
-    mbar_expect_tx(bar, (unsigned)(nu * 16));
-    bulk_load(smem_addr(ring + s * kTileBytes), xv + u0, (unsigned)(nu * 16),
-              bar);
-  };
-  if (threadIdx.x == 0) {
-    for (long long i = 0; i < kStages && i < mine; ++i) issue(i);
-  }
-  for (long long i = 0; i < mine; ++i) {
-    const int s = (int)(i % kStages);
-    mbar_wait(smem_addr(bars + s), (unsigned)((i / kStages) & 1));
-    const long long u0 = (blockIdx.x + i * gridDim.x) * kTileUnits;
-    const int nu = (int)min((long long)kTileUnits, units - u0);
-    const uint4* tile = reinterpret_cast<const uint4*>(ring + s * kTileBytes);
-    if (nu == kTileUnits) {
-#pragma unroll
-      for (int k = 0; k < kTileUnits / kThreads; ++k)
-        acc_unit<kBf16>(a, tile[threadIdx.x + k * kThreads]);
-    } else {
-      for (int u = threadIdx.x; u < nu; u += kThreads)
-        acc_unit<kBf16>(a, tile[u]);
-    }
-    __syncthreads();   // every thread is done with stage s
-    if (threadIdx.x == 0 && i + kStages < mine) issue(i + kStages);
-  }
-}
 
 // Unit u belongs to thread u % (grid * kThreads); kUnroll loads in flight.
 template <bool kBf16>
-__device__ __forceinline__ void body_ldg(Acc& a, const uint4* xv,
-                                         long long units) {
+__device__ __forceinline__ void body(Acc& a, const uint4* xv,
+                                     long long units) {
   const long long stride = (long long)gridDim.x * kThreads;
   long long u = (long long)blockIdx.x * kThreads + threadIdx.x;
   for (; u + (kUnroll - 1) * stride < units; u += kUnroll * stride) {
@@ -355,10 +263,8 @@ __device__ void epilogue(const Acc& a, const Args& p) {
   }
 }
 
-template <bool kBf16, bool kBulk, bool kRow>
+template <bool kBf16, bool kRow>
 __global__ void __launch_bounds__(kThreads) stats_kernel(Args p) {
-  extern __shared__ __align__(128) unsigned char ring[];
-  __shared__ unsigned long long bars[kStages];
   __shared__ Acc red[kWarps];
   __shared__ int last;
   constexpr int kPer = kBf16 ? 8 : 4;       // elements per 16-byte unit
@@ -371,11 +277,7 @@ __global__ void __launch_bounds__(kThreads) stats_kernel(Args p) {
   }
   const uint4* xv =
       reinterpret_cast<const uint4*>(p.x + (long long)p.head * (16 / kPer));
-  if (kBulk) {
-    body_bulk<kBf16>(a, xv, p.units, ring, bars);
-  } else {
-    body_ldg<kBf16>(a, xv, p.units);
-  }
+  body<kBf16>(a, xv, p.units);
   block_reduce(a, red);
   if (gridDim.x > 1) {
     if (threadIdx.x == 0) {
@@ -393,30 +295,14 @@ __global__ void __launch_bounds__(kThreads) stats_kernel(Args p) {
   if (threadIdx.x == 0) epilogue<kRow>(a, p);
 }
 
-template <bool kBf16, bool kBulk, bool kRow>
+template <bool kBf16, bool kRow>
 int launch(const Args& p, int grid, cudaStream_t st) {
-  const int smem = kBulk ? kStages * kTileBytes : 0;
-  if (kBulk) {
-    // above 48 KB of dynamic shared memory only after this opt-in, which
-    // holds for the function on the current device; once per device
-    static unsigned done = 0;
-    int dev = 0;
-    cudaGetDevice(&dev);
-    if (dev >= 32 || !(done & (1u << dev))) {
-      cudaError_t e = cudaFuncSetAttribute(
-          stats_kernel<kBf16, kBulk, kRow>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return (int)e;
-      if (dev < 32) done |= 1u << dev;
-    }
-  }
-  stats_kernel<kBf16, kBulk, kRow><<<grid, kThreads, smem, st>>>(p);
+  stats_kernel<kBf16, kRow><<<grid, kThreads, 0, st>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <bool kRow>
-int dispatch(Args& p, int is_bf16, int grid, int bulk, void* scratch,
-             void* stream) {
+int dispatch(Args& p, int is_bf16, int grid, void* scratch, void* stream) {
   if (grid < 1) return (int)cudaErrorInvalidValue;
   const int es = is_bf16 ? 2 : 4;
   const unsigned long long addr = reinterpret_cast<unsigned long long>(p.x);
@@ -430,26 +316,21 @@ int dispatch(Args& p, int is_bf16, int grid, int bulk, void* scratch,
   p.part = reinterpret_cast<Acc*>(static_cast<unsigned char*>(scratch) +
                                   kScratchHead);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return bulk ? launch<true, true, kRow>(p, grid, st)
-                : launch<true, false, kRow>(p, grid, st);
-  }
-  return bulk ? launch<false, true, kRow>(p, grid, st)
-              : launch<false, false, kRow>(p, grid, st);
+  return is_bf16 ? launch<true, kRow>(p, grid, st)
+                 : launch<false, kRow>(p, grid, st);
 }
 
 }  // namespace
 
 // Shared by both entry points: x is f32 or bf16 (is_bf16), numel elements,
-// contiguous; grid blocks (1 skips the partials and the ticket); bulk = 1
-// streams the body through the bulk-copy ring, 0 through unrolled 16-byte
-// loads; scratch: the per-device buffer of 16 + 40 * max grid bytes whose
+// contiguous; grid blocks (1 skips the partials and the ticket); scratch:
+// the per-device buffer of 16 + 40 * max grid bytes whose
 // first 4 bytes are 0 between launches. Each returns the CUDA error of the
 // launch (0 = ok).
 
 // out_f: f32[5] = mean, rms, min, max, absmax; out_i: i64[2] = nan, inf.
 extern "C" int repro_tensor_stats(const void* x, int is_bf16, long long numel,
-                                  int grid, int bulk, void* scratch,
+                                  int grid, void* scratch,
                                   float* out_f, long long* out_i,
                                   void* stream) {
   Args p{};
@@ -457,13 +338,13 @@ extern "C" int repro_tensor_stats(const void* x, int is_bf16, long long numel,
   p.n = numel;
   p.out_f = out_f;
   p.out_i = out_i;
-  return dispatch<false>(p, is_bf16, grid, bulk, scratch, stream);
+  return dispatch<false>(p, is_bf16, grid, scratch, stream);
 }
 
 // row: i64[16] = site, kind, layer, 0, numel, mean, rms, min, max, absmax
 // (Q47.16), nan, inf, 0, 0, 0, 0 -- the collector's event row.
 extern "C" int repro_tensor_stats_row(const void* x, int is_bf16,
-                                      long long numel, int grid, int bulk,
+                                      long long numel, int grid,
                                       void* scratch, long long site,
                                       long long kind, long long layer,
                                       long long* row, void* stream) {
@@ -474,5 +355,5 @@ extern "C" int repro_tensor_stats_row(const void* x, int is_bf16,
   p.site = site;
   p.kind = kind;
   p.layer = layer;
-  return dispatch<true>(p, is_bf16, grid, bulk, scratch, stream);
+  return dispatch<true>(p, is_bf16, grid, scratch, stream);
 }

@@ -15,14 +15,9 @@ NaN and Inf counts) and the block that draws the last ticket of a
 per-device counter folds them in a fixed order. Each all-finite 16-byte
 unit is summed in f32 before it enters the double sums. No float atomics, so
 repeated runs give identical results; bf16 is widened inside the kernel.
-The body streams through unrolled 16-byte loads, four in flight per
-thread (BODY "ldg", the default), or through a ring of Hopper's bulk
-asynchronous copies ("bulk"); on one H100 the loads were as fast as the
-ring or faster at every measured size (chip_smoke.py phase 2, "tensor_stats
-bodies"), so the simpler design is the default and the ring stays
-selectable and measured. Two epilogues: the dict entry
-(`tensor_stats_cuda`) and the row entry (`tensor_stats_row_cuda`), which
-writes the whole 16-lane event row.
+The body streams through 16-byte loads, four in flight per thread. Two
+epilogues: the dict entry (`tensor_stats_cuda`) and the row entry
+(`tensor_stats_row_cuda`), which writes the whole 16-lane event row.
 
 The partials and the ticket counter are one scratch buffer per device,
 kept for the process: the kernel assumes one stream at a time per device
@@ -39,25 +34,23 @@ from .ref import STAT_KEYS
 
 LAUNCHES = 0                  # incremented once per kernel launch
 BLOCK = 256                   # threads per block (kThreads in the source)
-SMS = 132                     # streaming multiprocessors of an H100 SXM
-BLOCKS_PER_SM = 3             # the most an SM holds with the 64 KB ring
-# Grids are rounded up to a multiple of GRID_MULTIPLE blocks: on one H100
-# every grid that was not a multiple of 32 took 2-3 us longer than the next
-# multiple of 32, at every size measured (chip_smoke.py phase 2, "grid
-# rounding"); the cause is not known.
-GRID_MULTIPLE = 32
-MAX_GRID = 12 * GRID_MULTIPLE  # 384: one wave at BLOCKS_PER_SM on 132 SMs
-# One block takes a tensor of up to this many elements whole: no partials,
-# no ticket. Measured on one H100 (chip_smoke.py phase 2, "one-block cut"):
-# one block is faster than a 32-block grid at 8,192 elements, slower at
-# 16,384.
+# The grid constants were measured on one H100 80GB HBM3 at 700 W by
+# `python -m repro_torch.kernels.tune_stats` (PERF.md, PR 14):
+# - one block takes a tensor of up to ONE_BLOCK_MAX elements whole (no
+#   partials, no ticket): one block was faster than a 32-block grid at
+#   8,192 elements and slower at 16,384;
+# - grids are multiples of GRID_MULTIPLE blocks: every grid measured that
+#   was not a multiple of 32 (2 to 528 blocks) took 2.0-3.7 us longer than
+#   a multiple of 32 at the same size; the cause is not known;
+# - MAX_GRID: of the caps measured (264 to 1,024 blocks), 384 was the
+#   fastest at 2 Mi f32 and at the training block tensor (7.3 M bf16), and
+#   within 1.2 % of the fastest (512) at 64 Mi f32.
 ONE_BLOCK_MAX = 12288
+GRID_MULTIPLE = 32
+MAX_GRID = 384
 _PER_BLOCK = 4096             # elements a block takes before the grid grows
-TILE_BYTES = 16384            # one bulk copy (kTileBytes)
-STAGES = 4                    # tiles in the ring (kStages)
-BODIES = ("bulk", "ldg")
-BODY = "ldg"                  # the body of every call above the cut
-_SCRATCH_BYTES = 16 + 40 * MAX_GRID
+SCRATCH_GRID = 1024           # partial records the per-device scratch holds
+_SCRATCH_BYTES = 16 + 40 * SCRATCH_GRID
 _FN: dict = {}
 
 
@@ -68,54 +61,50 @@ def grid_for(numel: int) -> int:
     return min(MAX_GRID, -(-grid // GRID_MULTIPLE) * GRID_MULTIPLE)
 
 
-def _bulk(numel: int, body: str) -> bool:
-    # a one-block tensor is a few KB: plain loads, no ring to set up
-    return body == "bulk" and grid_for(numel) > 1
-
-
 def _fn(symbol: str):
     if symbol not in _FN:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        args = ([p, i, ll, i, i, p, p, p, p] if symbol == "repro_tensor_stats"
-                else [p, i, ll, i, i, p, ll, ll, ll, p, p])
+        args = ([p, i, ll, i, p, p, p, p] if symbol == "repro_tensor_stats"
+                else [p, i, ll, i, p, ll, ll, ll, p, p])
         _FN[symbol] = build.function("tensor_stats", symbol, args)
     return _FN[symbol]
 
 
-def _check(x: torch.Tensor, body: str):
+def _check(x: torch.Tensor):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"tensor_stats: expected f32 or bf16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("tensor_stats: x must be contiguous")
-    if body not in BODIES:
-        raise ValueError(f"tensor_stats: body {body!r} not in {BODIES}")
     if not x.is_cuda:
         raise ValueError(f"tensor_stats x: expected a CUDA tensor, got "
                          f"{x.device}")
 
 
-def _launch(symbol: str, x: torch.Tensor, body: str, *tail) -> None:
+def _launch(symbol: str, x: torch.Tensor, grid: int, *tail) -> None:
     global LAUNCHES
+    if not 1 <= grid <= SCRATCH_GRID:
+        raise ValueError(f"tensor_stats: grid {grid} not in [1, "
+                         f"{SCRATCH_GRID}]")
     dev = x.device
     n = x.numel()
     scratch, stream = build.device_scratch("tensor_stats", dev,
                                            _SCRATCH_BYTES)
     with build.device_guard(dev):
         rc = _fn(symbol)(x.data_ptr(), int(x.dtype == torch.bfloat16), n,
-                         grid_for(n), int(_bulk(n, body)), scratch.data_ptr(),
-                         *tail, stream)
+                         grid, scratch.data_ptr(), *tail, stream)
     build.check(rc, "tensor_stats")
     LAUNCHES += 1
 
 
-def tensor_stats_cuda(x: torch.Tensor, body: str = BODY) -> dict:
+def tensor_stats_cuda(x: torch.Tensor) -> dict:
     """Launch the kernel on a contiguous f32 or bf16 CUDA tensor. Returns
     0-dim tensors: f32 mean/rms/min/max/absmax, i64 nan_cnt/inf_cnt (views
     of one output buffer)."""
-    _check(x, body)
+    _check(x)
     out = torch.empty(6, dtype=torch.int64, device=x.device)
     out_f = out[2:].view(torch.float32)
-    _launch("repro_tensor_stats", x, body, out_f.data_ptr(), out.data_ptr())
+    _launch("repro_tensor_stats", x, grid_for(x.numel()), out_f.data_ptr(),
+            out.data_ptr())
     res = {k: out_f[j] for j, k in enumerate(STAT_KEYS)}
     res["nan_cnt"] = out[0]
     res["inf_cnt"] = out[1]
@@ -123,11 +112,11 @@ def tensor_stats_cuda(x: torch.Tensor, body: str = BODY) -> dict:
 
 
 def tensor_stats_row_cuda(x: torch.Tensor, site_id: int, kind: int,
-                          layer: int, body: str = BODY) -> torch.Tensor:
+                          layer: int) -> torch.Tensor:
     """The collector's event row of a contiguous f32 or bf16 CUDA tensor in
     one launch: i64[16] as `ref.tensor_stats_row`."""
-    _check(x, body)
+    _check(x)
     row = torch.empty(16, dtype=torch.int64, device=x.device)
-    _launch("repro_tensor_stats_row", x, body, int(site_id), int(kind),
+    _launch("repro_tensor_stats_row", x, grid_for(x.numel()), int(site_id), int(kind),
             int(layer), row.data_ptr())
     return row

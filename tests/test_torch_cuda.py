@@ -86,19 +86,17 @@ ROW_SHAPES = [(4, 1, 896), (4, 1, 152064), (2, 4096, 896), (1,), (1027,),
 @pytest.mark.parametrize("shape", ROW_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("body", TTS.BODIES)
-def test_tensor_stats_row_kernel_matches_plain(cuda, shape, dtype, body):
+def test_tensor_stats_row_kernel_matches_plain(cuda, shape, dtype):
     g = torch.Generator(device=cuda).manual_seed(3)
     x = torch.randn(shape, generator=g, device=cuda) * 7
     x.view(-1)[-3:] = torch.tensor([float("nan"), float("-inf"),
                                     float("inf")], device=cuda)[-x.numel():]
     x = x.to(getattr(torch, dtype))
-    row = TTS.tensor_stats_row_cuda(x, 5, 1, 23, body=body)
-    _check_row(row, x, TTS.tensor_stats_cuda(x, body=body), (5, 1, 23))
+    row = TTS.tensor_stats_row_cuda(x, 5, 1, 23)
+    _check_row(row, x, TTS.tensor_stats_cuda(x), (5, 1, 23))
 
 
-@pytest.mark.parametrize("body", TTS.BODIES)
-def test_tensor_stats_repeats_bit_identical_across_grids(cuda, body):
+def test_tensor_stats_repeats_bit_identical_across_grids(cuda):
     """Three rounds over tensors at the one-block cut (-1, at, +1) and over
     grids of different sizes called in turn give identical rows: a ticket
     counter left unreset would fold the wrong partials."""
@@ -108,13 +106,13 @@ def test_tensor_stats_repeats_bit_identical_across_grids(cuda, body):
     g = torch.Generator(device=cuda).manual_seed(4)
     xs = [torch.randn(n, generator=g, device=cuda) for n in sizes]
     assert len({TTS.grid_for(n) for n in sizes}) >= 4
-    rounds = [[TTS.tensor_stats_row_cuda(x, 0, 0, 0, body=body) for x in xs]
+    rounds = [[TTS.tensor_stats_row_cuda(x, 0, 0, 0) for x in xs]
               for _ in range(3)]
     for again in rounds[1:]:
         for n, a, b in zip(sizes, rounds[0], again):
             assert torch.equal(a, b), n
     for x, row in zip(xs, rounds[0]):
-        _check_row(row, x, TTS.tensor_stats_cuda(x, body=body), (0, 0, 0))
+        _check_row(row, x, TTS.tensor_stats_cuda(x), (0, 0, 0))
 
 
 def test_tensor_stats_scratch_is_for_one_stream(cuda):

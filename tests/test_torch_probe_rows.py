@@ -6,6 +6,10 @@ Q47.16 lanes against `events.to_fx`, the collector's row route against its
 (the tensor_stats grid and one-block cut, the hash kernel's routes). The
 kernels themselves are held against these plain versions on the card by
 tests/test_torch_cuda.py."""
+import re
+import zlib
+from pathlib import Path
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -27,7 +31,7 @@ EXACT = [0, 1, 2, 3, 4, 10, 11, 12, 13, 14, 15]   # header, counts, spare
 
 
 def _input(case: str) -> np.ndarray:
-    rng = np.random.default_rng(abs(hash(case)) % 2**31)
+    rng = np.random.default_rng(zlib.crc32(case.encode()))
     if case == "nan_inf":
         return np.asarray([1.0, np.nan, -np.inf, 4.0, np.inf, -2.5, np.nan],
                           np.float32)
@@ -142,16 +146,16 @@ def test_tensor_stats_grid_and_one_block_cut():
     grids = [TTS.grid_for(n) for n in range(cut, 1 << 26, 4099)]
     assert grids == sorted(grids) and max(grids) == TTS.MAX_GRID
     assert all(g % TTS.GRID_MULTIPLE == 0 for g in grids[1:])
-    assert TTS.MAX_GRID <= TTS.SMS * TTS.BLOCKS_PER_SM     # one wave
-    # the ring only above the cut, and BLOCKS_PER_SM rings fit an SM's
-    # 228 KB (1 KB of each block is reserved)
-    assert not TTS._bulk(cut, "bulk") and TTS._bulk(cut + 1, "bulk")
-    assert not TTS._bulk(cut + 1, "ldg")
-    assert TTS.BODY in TTS.BODIES
-    ring = TTS.STAGES * TTS.TILE_BYTES
-    assert TTS.BLOCKS_PER_SM * (ring + 2048) <= 228 * 1024
-    with pytest.raises(ValueError, match="body"):
-        TTS.tensor_stats_cuda(torch.zeros(3), body="fast")
+    assert TTS.MAX_GRID % TTS.GRID_MULTIPLE == 0
+    assert TTS.MAX_GRID <= TTS.SCRATCH_GRID
+    # the wrapper's block is the kernel's
+    src = (Path(TTS.__file__).parent / "csrc" / "tensor_stats.cu").read_text()
+    assert re.search(r"constexpr int kThreads = (\d+);", src).group(1) == \
+        str(TTS.BLOCK)
+    # a grid beyond the scratch's partial records is refused before launch
+    for grid in (0, TTS.SCRATCH_GRID + 1):
+        with pytest.raises(ValueError, match="grid"):
+            TTS._launch("repro_tensor_stats_row", torch.zeros(3), grid)
 
 
 @pytest.mark.parametrize("b", [0, 1, 49, 1024, 1025, 4096])
