@@ -5,20 +5,24 @@
     python3 chip_smoke.py --kernels    # phases 1-2 only (build + checks)
 
 Phases:
-  1. build the four Hopper kernel sources from src/repro_torch/kernels/csrc
+  1. build the five Hopper kernel sources from src/repro_torch/kernels/csrc
      with nvcc (one process per source, in parallel); print each bf16 flash
      kernel's registers, spill bytes and shared memory (ptxas -v) and its
      HGMMA (wgmma) instructions in `cuobjdump -sass` of the library, and
      fail if one has no HGMMA; print the same ptxas numbers for every
-     tensor_stats and hash kernel, beside the dynamic shared memory each
-     asks for;
+     tensor_stats, hash, ringbuf and interpreter kernel, beside the dynamic
+     shared memory each asks for;
   2. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and at stress shapes, and time both: the device
      time per launch (torch.profiler) beside the host's time per wrapper
      call. tensor_stats through its dict and its row entry (the row's
      Q47.16 lanes bit for bit `to_fx` of the kernel's stats); the hash
-     kernel on its shared
-     and its global route; flash attention forward and backward also
+     kernel on its shared and its global route; the ring-buffer apply
+     (data, head and the dropped lap count) from heads that lap; the table
+     interpreter on an eight-slot table of both sub-lanes at 49 and 4096
+     events (every helper, full HASH maps, fuel cut short) and on every
+     fuzz-corpus program on each sub-lane that takes it, against the plain
+     version on CPU copies; flash attention forward and backward also
      against scaled_dot_product_attention's forward and its backward alone
      (the yardsticks, never called by the port), and the backward twice for
      bit-identity;
@@ -36,7 +40,21 @@ Phases:
      device time by kernel group, and the device operations (kernels,
      copies, fills) each collected event costs, which must be exactly one
      tensor_stats launch;
-  6. train qwen2-0.5b at full width through launch/train.run_training:
+  6. the live lane while qwen2-0.5b serves at full width: the phase 3
+     runtime with `enable_live_attach(arm=LIVE_ARM)` before the engine is
+     built; after the first requests, three programs (launch/serve.py
+     LIVE_PROBES: a vec, a sequential and a vec slot) are attached with
+     mode="table" and synced, the rest served; then one is detached and a
+     fourth attached with promote=True, served on the table, and promoted
+     to the fused lane at the next sync under enable_promotion(...,
+     background=False). Fails unless the decode step object is unchanged,
+     the interpreter launched once per probed step, and every probed
+     step's map states equal a replay through a runtime with the same
+     programs on the fused lane. Prints the attach-to-run latency, warm ms
+     per decode step with the three programs on the table lane, the fused
+     lane and not attached, and us per event on one decode tape for the
+     fused lane, the table lane and callback_probe's host round trip;
+  7. train qwen2-0.5b at full width through launch/train.run_training:
      seq 4096, global batch 4 in microbatches of 2, AdamW, remat, 3 steps,
      the TRAIN_PROBES set on the fused lane (layer counters, a gradient-norm
      histogram, a loss record and a NaN guard); every attention layer runs
@@ -45,7 +63,7 @@ Phases:
      under torch.profiler (device busy share, time by kernel group, device
      operations per event, again exactly one), and two steps with no
      program attached;
-  7. one training step of the smoke-width model (f32) at seq 4096 on the
+  8. one training step of the smoke-width model (f32) at seq 4096 on the
      card and on the CPU from the same weights and batch: loss, gradient
      norm, updated parameters and maps compared.
 
@@ -57,6 +75,7 @@ non-zero before printing any result. No JAX is imported.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import re
@@ -220,7 +239,8 @@ def _probe_label(mangled: str):
         flags = [f for f, on in zip(("bf16", "row"), m.groups())
                  if on == "1"]
         return f"stats_kernel<{','.join(flags) or 'f32'}>"
-    m = re.search(r"(hash_shared|hash_global|ringbuf_emit)", mangled)
+    m = re.search(r"(hash_shared|hash_global|ringbuf_emit|table_interp)",
+                  mangled)
     return m.group(1) if m else None
 
 
@@ -228,9 +248,11 @@ def probe_build_report(build, HU, cfg) -> dict:
     """Phase 1's report on the probe kernels: ptxas registers, spills and
     static shared memory, and the dynamic shared memory each launch asks
     for (tensor_stats and ringbuf: none; hash: the shared route at the
-    path's map and batches)."""
+    path's map and batches; the interpreter: its packed table)."""
+    from repro_torch.core.table_interp import table_layout
     out = {}
-    for src in ("tensor_stats", "hash_update", "ringbuf_emit"):
+    for src in ("tensor_stats", "hash_update", "ringbuf_emit",
+                "table_interp"):
         out.update(ptxas_report(build.BUILD_LOG.get(src, ""), _probe_label))
     rows = 2 * cfg.num_layers + 1
     dyn = {"stats_kernel": "0",
@@ -239,10 +261,13 @@ def probe_build_report(build, HU, cfg) -> dict:
                for b in (rows, 4096)),
            "hash_global": f"the batch table, {HU.batch_bytes(rows)} B at B "
                           f"{rows}, when it fits, else 0 (scratch)",
-           "ringbuf_emit": "0"}
-    if len(out) != 7:
-        fail(f"phase 1: expected 4 tensor_stats, 2 hash and 1 ringbuf "
-             f"kernels, found {sorted(out)}")
+           "ringbuf_emit": "0",
+           "table_interp": "; ".join(
+               f"{8 * table_layout(p, 64)[1]} B, the packed table of {p} x "
+               "64 rows" for p in (4, 8))}
+    if len(out) != 8:
+        fail(f"phase 1: expected 4 tensor_stats, 2 hash, 1 ringbuf and 1 "
+             f"interpreter kernels, found {sorted(out)}")
     for name, r in sorted(out.items()):
         r["dynamic_smem"] = next(v for k, v in dyn.items() if k in name)
         print(f"  {name}: {r.get('registers')} registers, spill stores "
@@ -495,13 +520,14 @@ def check_ringbuf(torch, RB, ref, cases):
     for label, cap, batch, width in cases:
         data = rng.integers(-9, 9, size=(cap, width))
         head = np.array([int(rng.integers(0, 3 * cap))])
+        dropped = np.array([int(rng.integers(0, 100))])
         recs = rng.integers(-(1 << 40), 1 << 40, size=(batch, width))
         valid = rng.random(batch) < 0.7
         dev = [torch.as_tensor(a, device="cuda")
-               for a in (data, head, recs, valid)]
+               for a in (data, head, dropped, recs, valid)]
         got = RB.ringbuf_emit_batch_cuda(*dev)
         want = ref.ringbuf_emit_batch(*dev)
-        for f, g, w in zip(("data", "head"), got, want):
+        for f, g, w in zip(("data", "head", "dropped"), got, want):
             if not torch.equal(g, w):
                 fail(f"ringbuf {label}: {f} differs from the plain version")
         r = timed(torch, {"case": label, "cap": cap, "batch": batch},
@@ -509,8 +535,9 @@ def check_ringbuf(torch, RB, ref, cases):
                   ("ringbuf_emit",),
                   plain=lambda: ref.ringbuf_emit_batch(*dev))
         r["bound_ms"], r["bound_by"] = bound_ms(
-            batch + batch * width * 8 + 2 * cap * width * 8 + 16,
+            batch + batch * width * 8 + 2 * cap * width * 8 + 32,
             2.0 * batch)
+        r["laps"] = int(got[2][0] - dropped[0])
         rows.append(r)
         print(f"  ringbuf {label} cap={cap} B={batch} W={width}: device "
               f"{r['ms'] * 1e3:.2f} us a launch (back to back "
@@ -518,7 +545,116 @@ def check_ringbuf(torch, RB, ref, cases):
               f"{r['host_us']:.1f} us a call, calls back-to-back on the host "
               f"{r['call_ms'] * 1e3:.2f} us, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms'] * 1e3:.4f} us "
+              f"({r['bound_by']}), {r['laps']} laps, bit-identical",
+              flush=True)
+    return rows
+
+
+def ringbuf_apply_ops(torch, RB, L2):
+    """PyTorch operators and kernel launches of one RINGBUF apply of the
+    fused lane (`vectorized._apply_site`) at the path's shape: the
+    redesigned apply is one launch of its kernel, and every operator it
+    dispatches only allocates (no device work). Counted deterministically
+    (a dispatch mode and the wrapper's counter): a profiler window loses
+    its first records now and then, and this one holds one kernel."""
+    from types import SimpleNamespace
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.core import jit as J, maps as M, vectorized as V
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+    spec = M.MapSpec("rb", M.MapKind.RINGBUF, 64, rec_width=4)
+    st = {"rb": M.init_state(spec, "cuda")}
+    rec = (torch.ones(L2, dtype=torch.bool, device="cuda"),
+           torch.arange(L2 * 4, device="cuda").reshape(L2, 4))
+    vp = SimpleNamespace(map_specs=[spec])
+    aux = J.make_aux(device="cuda")
+    torch.cuda.synchronize()
+    before = RB.LAUNCHES
+    with Ops() as mode:
+        V._apply_site(vp, "ringbuf_output", (0,), rec, st, aux)
+    torch.cuda.synchronize()
+    launches = RB.LAUNCHES - before
+    work = [n for n in mode.names if not n.startswith("empty")]
+    print(f"  ringbuf apply at B {L2}: {launches} kernel launch, operators "
+          f"{mode.names} (device work: {work or 'none'})", flush=True)
+    if launches != 1 or work:
+        fail(f"the ringbuf apply must be one kernel launch and nothing "
+             f"else: {launches} launches, operators {mode.names}")
+    return launches + len(work)
+
+
+def _interp_bytes(case) -> int:
+    """Bytes the interpreter must move for one case: the table and the
+    tape read once, every map state and the aux block read and written."""
+    _, table, rows, maps, aux = case
+    st = sum(t.numel() for m in maps.values() for t in m.values())
+    ax = sum(t.numel() for t in aux.values())
+    return 8 * (table["packed"].numel() + rows.numel() + 2 * (st + ax))
+
+
+def check_interp(torch, ops, IC, corpus):
+    """The interpreter kernel against its plain version (on CPU copies of
+    the same inputs) on the mixed table and the ISA-traps program at 49 and
+    4096 events and on every corpus program on each sub-lane that may take
+    it: maps, aux and r0 bit for bit. Times the mixed table: device us per launch, host us per
+    call; the plain version's ms is host time on the CPU (it steps its
+    loops from the host)."""
+    cases = [(f"mixed {n}", IC.mixed_case(n, SEED + n, "cuda"), False)
+             for n in (49, 4096)]
+    cases += [(f"isa traps {n}", IC.traps_case(n, SEED + n, "cuda"), True)
+              for n in (49, 4096)]
+    for name, d in corpus:
+        for n in (49, 4096):
+            for vec in (False, True):
+                c = IC.corpus_case(d["text"], d["tape"], n, SEED, vec,
+                                   "cuda")
+                if c is not None:
+                    cases.append((f"{name} {'vec' if vec else 'seq'} {n}",
+                                  c, True))
+    rows = []
+    for label, case, match_all in cases:
+        got = ops.table_interp_run(*case, match_all=match_all, want_r0=True)
+        torch.cuda.synchronize()
+        cpu = IC.to_cpu(case)
+        t0 = time.perf_counter()
+        want = ops.table_interp_run(*cpu, match_all=match_all, want_r0=True)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        bad = IC.compare(IC.to_cpu(got), want)
+        if bad:
+            fail(f"interpreter {label}: {bad} differ from the plain version")
+        if not label.startswith("mixed"):
+            continue
+        # CUDA events around back-to-back calls: the launches are long
+        # (up to tens of ms), so the gaps between them do not count
+        n = case[2].shape[0]
+        reps = 20 if n < 1000 else 5
+
+        def fn():
+            return ops.table_interp_run(*case)
+        base = ops.launch_counts()["table_interp"]
+        r = {"case": label, "events": n, "ms": cuda_ms(torch, fn, reps),
+             "host_us": host_us(torch, fn, reps)}
+        r["launches_per_call"] = (ops.launch_counts()["table_interp"]
+                                  - base) / (2 + reps + 1 + reps)
+        r["plain_ms"] = plain_ms
+        r["plain_on"] = "host CPU"
+        r["bound_ms"], r["bound_by"] = bound_ms(_interp_bytes(case), 0.0)
+        rows.append(r)
+        print(f"  interpreter {label} events: device {r['ms'] * 1e3:.2f} us a "
+              f"call back to back (CUDA events; "
+              f"{r['launches_per_call']:.0f} launch a call), host "
+              f"{r['host_us']:.1f} us a call, plain {plain_ms:.1f} ms on "
+              f"the host CPU, bound {r['bound_ms'] * 1e3:.4f} us "
               f"({r['bound_by']}), bit-identical", flush=True)
+    print(f"  interpreter: {len(cases)} cases bit-identical to the plain "
+          f"version ({', '.join(lbl for lbl, *_ in cases)})", flush=True)
     return rows
 
 
@@ -780,18 +916,35 @@ def collector_ops(prof) -> dict:
             "other_by_name": names}
 
 
+def _profile_once(torch, fn):
+    """(profile, wall s, tensor_stats launches by the wrappers' counter) of
+    one fn() under torch.profiler, every collector event in a range."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    before = ops.launch_counts()["tensor_stats"]
+    with emit_ranges(torch), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # throwaway kernels first: the first records of a window can be
+        # lost while the profiler starts, and a training step's first
+        # tensor_stats kernel is its sixth device operation
+        warm = torch.empty(1, device="cuda")
+        for _ in range(64):
+            warm.fill_(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    return prof, pwall, ops.launch_counts()["tensor_stats"] - before
+
+
 def profiled(torch, fn, groups, detail):
     """fn() under torch.profiler, every collector event in a range: (wall
     s, device us by group, per-kernel device ms and count of the group
     `detail`, the collector's device operations). Prints the ten kernels
     with the most device time."""
-    from torch.profiler import ProfilerActivity, profile
-    with emit_ranges(torch), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        pwall = time.perf_counter() - t0
+    prof, pwall, launched = _profile_once(torch, fn)
+    col = collector_ops(prof)
     by_group = {g: 0.0 for g in list(groups) + ["other"]}
     top, per = [], {}
     for e in prof.key_averages():
@@ -821,16 +974,17 @@ def profiled(torch, fn, groups, detail):
     for p in per.values():
         p["us_per_launch"] = p["device_ms"] * 1e3 / max(p["count"], 1)
     print(f"  {detail} on the device: {json.dumps(per)}", flush=True)
-    ops = collector_ops(prof)
+    ops = col
     print(f"  collector: {ops['events']} events, {ops['stats_kernels']} "
-          f"tensor_stats kernels and {ops['other_device_ops']} other device "
-          f"operations = {ops['device_ops_per_event']:.2f} device operations "
-          f"per event; others by name {json.dumps(ops['other_by_name'])}",
-          flush=True)
+          f"tensor_stats kernels ({launched} launches by the counter) and "
+          f"{ops['other_device_ops']} other device operations = "
+          f"{ops['device_ops_per_event']:.2f} device operations per event; "
+          f"others by name {json.dumps(ops['other_by_name'])}", flush=True)
     if not ops["events"] or ops["other_device_ops"] or \
-            ops["stats_kernels"] != ops["events"]:
+            ops["stats_kernels"] != ops["events"] or launched != ops["events"]:
         fail("the collector must make exactly one tensor_stats launch and "
-             f"no other device operation per event: {ops}")
+             f"no other device operation per event: {ops}, {launched} "
+             "launches by the counter")
     return pwall, by_group, per, ops
 
 
@@ -882,8 +1036,249 @@ def timing(torch, cfg, params):
             "probe_kernels_device": probe, "collector_ops": ops}
 
 
+
 # --------------------------------------------------------------------------
-# phases 6-7: training
+# phase 6: the live lane while serving
+# --------------------------------------------------------------------------
+
+def _live_runtime(lane):
+    """The serving runtime of phase 3 (admission filter, the four serving
+    probes on the fused lane) with LIVE_PROBES loaded: lane "table" also
+    enables the live lane, armed on LIVE_ARM (before any engine is built);
+    "fused" attaches the first three LIVE_PROBES on the fused lane; None
+    attaches none of them."""
+    from repro_torch.core.runtime import BpftimeRuntime
+    from repro_torch.launch import serve as L
+    rt = BpftimeRuntime()
+    pid = rt.load_asm("admit", L.admit_filter_text(12), [], "filter")
+    rt.attach(pid, "filter:sys_serve_admit")
+    L.attach_serve_probes(rt)
+    pids = L.load_live_probes(rt)
+    if lane == "table":
+        rt.enable_live_attach(arm=L.LIVE_ARM)
+    elif lane == "fused":
+        for name, _, _, target in L.LIVE_PROBES[:3]:
+            rt.attach(pids[name], target, mode="fused")
+    return rt, pids
+
+
+def _attach_live_three(rt, pids, maps):
+    """The first three LIVE_PROBES on the table lane, pushed to `maps`."""
+    from repro_torch.launch import serve as L
+    links = [rt.attach(pids[name], target, mode="table", promote=False)
+             for name, _, _, target in L.LIVE_PROBES[:3]]
+    return links, rt.sync_live_table(maps)
+
+
+def _same_maps(a, b) -> list:
+    from repro_torch.core.runtime import to_numpy
+    a, b = to_numpy(a), to_numpy(b)
+    return [f"{m}.{f}" for m in b for f in b[m]
+            if not (a[m][f] == b[m][f]).all()]
+
+
+def live_serve(torch, ops, cfg, params):
+    """qwen2-0.5b served at full width while programs are hot-attached to
+    the running decode step through the live table, detached, and one
+    promoted to the fused lane; every probed step replayed through a
+    runtime that has the same programs on the fused lane."""
+    from repro_torch.launch import serve as L
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.steps import make_decode_step
+    rt, pids = _live_runtime("table")
+    engine = ServeEngine(params, cfg, slots=4, max_seq=128, runtime=rt,
+                         device="cuda")
+    decode = engine._decode
+    steps, part, mark = [], [1], {}
+    stage = rt.probe_stage
+
+    def recording(rows, maps, aux, mode=None):
+        out = stage(rows, maps, aux, mode=mode)
+        steps.append((part[0], rows, {k: v for k, v in maps.items()
+                                      if k != "__live_table__"}, aux,
+                      out[0]))
+        if "attach" in mark and "first_run" not in mark:
+            torch.cuda.synchronize()
+            mark["first_run"] = time.perf_counter()
+        return out
+    rt.probe_stage = recording
+    prefill = engine._prefill_slot
+    mark["prefill_s"] = 0.0
+
+    def timed_prefill(slot, req):
+        # the prefills between the attach and the first probe stage that
+        # runs the programs are not part of the attach latency
+        t0 = time.perf_counter()
+        prefill(slot, req)
+        if "attach" in mark and "first_run" not in mark:
+            torch.cuda.synchronize()
+            mark["prefill_s"] += time.perf_counter() - t0
+    engine._prefill_slot = timed_prefill
+    reqs_a = L.make_requests(8, 8, cfg.vocab_size, SEED)
+    reqs_b = L.make_requests(8, 8, cfg.vocab_size, SEED + 1)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    engine.submit_all(reqs_a[:4])                 # part 1: nothing live
+    part[0] = 2
+    mark["attach"] = time.perf_counter()
+    links, engine.maps = _attach_live_three(rt, pids, engine.maps)
+    attach_ms = (time.perf_counter() - mark["attach"]) * 1e3
+    lanes = [lk.lane for lk in links]
+    vec = rt.live.host["vec"][:3].tolist()
+    engine.submit_all(reqs_a[4:])                 # part 2: three on the table
+    part[0] = 3
+    rt.detach(links[2])
+    lk_hash = rt.attach(pids["lv_hash"], "uprobe:block", mode="table",
+                        promote=True)
+    engine.maps = rt.sync_live_table(engine.maps)
+    engine.submit_all(reqs_b[:4])                 # part 3: hash on the table
+    rt.enable_promotion(lambda: make_decode_step(cfg, rt), (),
+                        background=False)
+    state_ready = lk_hash.promotion_state
+    engine.maps = rt.sync_live_table(engine.maps)
+    part[0] = 4
+    engine.submit_all(reqs_b[4:])                 # part 4: hash fused
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    # the wrappers are instance attributes that close over their owners:
+    # drop them, so the engine (and the weights it shares) can be freed
+    del rt.probe_stage, engine._prefill_slot
+    probed = {k: sum(1 for s in steps if s[0] == k) for k in (1, 2, 3, 4)}
+    to_run_ms = (mark["first_run"] - mark["attach"]) * 1e3
+    prefill_ms = mark["prefill_s"] * 1e3
+    print(f"  served {engine.step_count} decode steps ({probed} probed "
+          f"per part); attach + sync of three programs {attach_ms:.3f} ms "
+          f"of host, attach to the end of the first probe stage that ran "
+          f"them {to_run_ms:.2f} ms, of which the new requests' prefills "
+          f"{prefill_ms:.2f} ms: {to_run_ms - prefill_ms:.2f} ms without "
+          f"them; kernels {json.dumps(launches)}", flush=True)
+    if engine._decode is not decode:
+        fail("live lane: the engine's decode step was rebuilt")
+    if lanes != ["table"] * 3:
+        fail(f"live lane: the three programs took lanes {lanes}")
+    if vec != [1, 0, 1]:
+        fail(f"live lane: vec flags {vec}, expected a vec, a sequential "
+             "and a vec slot")
+    if state_ready != "ready" or lk_hash.lane != "fused" or \
+            lk_hash.promotion_state != "fused":
+        fail(f"live lane: promotion ended {state_ready} -> "
+             f"{lk_hash.lane}/{lk_hash.promotion_state}")
+    if launches["table_interp"] != len(steps) or not all(probed.values()):
+        fail(f"live lane: {launches['table_interp']} interpreter launches "
+             f"for {len(steps)} probed steps ({probed})")
+    if any(launches[k] == 0 for k in ("tensor_stats", "hash_fetch_add_batch",
+                                      "ringbuf_emit_batch")):
+        fail(f"live lane: a serving kernel was not launched: {launches}")
+    # every probed step again, through a runtime with the same programs on
+    # the fused lane from the same boundaries
+    rf, fp = _live_runtime(None)
+    changes = {2: [("attach", "lv_count"), ("attach", "lv_rb"),
+                   ("attach", "lv_hist")],
+               3: [("detach", "lv_hist"), ("attach", "lv_hash")]}
+    flinks, cur = {}, 1
+    for k, rows, maps_in, aux, out in steps:
+        while cur < k:
+            cur += 1
+            for op, name in changes.get(cur, []):
+                if op == "attach":
+                    tgt = next(t for n, _, _, t in L.LIVE_PROBES if n == name)
+                    flinks[name] = rf.attach(fp[name], tgt, mode="fused")
+                else:
+                    rf.detach(flinks.pop(name))
+        want, _ = rf.probe_stage(rows, maps_in, aux)
+        bad = _same_maps(out, want)
+        if bad:
+            fail(f"live lane: part {k}: {bad} differ from the fused-lane "
+                 "replay")
+    final = {m: {f: int(t.sum()) for f, t in st.items()}
+             for m, st in engine.maps.items()
+             if m.startswith("lv_") and m != "lv_logits_rb"}
+    head = int(engine.maps["lv_logits_rb"]["head"][0])
+    if head != probed[2] + probed[3] + probed[4]:
+        fail(f"live lane: {head} logits records for "
+             f"{probed[2] + probed[3] + probed[4]} steps")
+    if final["lv_key_hash"]["values"] != \
+            (probed[3] + probed[4]) * cfg.num_layers:
+        fail(f"live lane: the promoted HASH counter holds "
+             f"{final['lv_key_hash']['values']}")
+    print(f"  {len(steps)} probed steps bit-identical to the fused-lane "
+          f"replay; engine unchanged; promotion ready -> fused at one "
+          f"sync; map sums {json.dumps(final)}, {head} logits records",
+          flush=True)
+    return {"decode_steps": engine.step_count, "probed_steps": probed,
+            "attach_sync_ms": attach_ms,
+            "attach_to_first_run_ms": to_run_ms,
+            "prefills_in_between_ms": prefill_ms,
+            "launches": launches, "steps": steps}
+
+
+def live_timing(torch, cfg, params, tape):
+    """Warm ms per decode step with the three programs on the table lane,
+    on the fused lane, and not attached (serving probes in all three), in
+    turns; then us per event on one decode tape for the three programs on
+    the fused lane, on the table lane and through callback_probe's host
+    round trip (the paper's Table 1 comparison)."""
+    from repro_torch.core import callback_probe as CB
+    from repro_torch.core.runtime import BpftimeRuntime
+    from repro_torch.launch import serve as L
+    from repro_torch.serve.engine import ServeEngine
+
+    def warm(lane):
+        rt, pids = _live_runtime(lane)
+        engine = ServeEngine(params, cfg, slots=4, max_seq=128, runtime=rt,
+                             device="cuda")
+        if lane == "table":
+            _, engine.maps = _attach_live_three(rt, pids, engine.maps)
+        reqs = L.make_requests(8, 8, cfg.vocab_size, SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.submit_all(reqs)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / engine.step_count * 1e3
+
+    warm("table")
+    runs = {"table": [], "fused": [], "none": []}
+    for lane in ("table", "fused", None, None, "fused", "table"):
+        runs[lane or "none"].append(warm(lane))
+    print("  warm ms per decode step (prefill included), three programs "
+          + "; ".join(f"{k}: {', '.join(f'{v:.2f}' for v in vs)}"
+                      for k, vs in runs.items()), flush=True)
+    rows, aux = tape
+    n = rows.shape[0]
+    per_event = {}
+    rt_t = BpftimeRuntime()
+    pids_t = L.load_live_probes(rt_t)
+    rt_t.enable_live_attach(arm=L.LIVE_ARM)
+    _, maps_t = _attach_live_three(rt_t, pids_t,
+                                   rt_t.init_device_maps("cuda"))
+    rt_f = BpftimeRuntime()
+    pids_f = L.load_live_probes(rt_f)
+    for name, _, _, target in L.LIVE_PROBES[:3]:
+        rt_f.attach(pids_f[name], target, mode="fused")
+    maps_f = rt_f.init_device_maps("cuda")
+    step = int(rows[0, 3])
+    for label, fn, reps in (
+            ("fused", lambda: rt_f.probe_stage(rows, maps_f, aux), 50),
+            ("table", lambda: rt_t.probe_stage(rows, maps_t, aux), 50),
+            ("callback_probe", lambda: CB.host_probe_stage(rt_f, rows, step),
+             10)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        per_event[label] = (time.perf_counter() - t0) / reps / n * 1e6
+    print(f"  us per event on one decode tape of {n} events (host clock, "
+          f"synchronised): " + ", ".join(f"{k} {v:.2f}"
+                                         for k, v in per_event.items()),
+          flush=True)
+    return {"warm_ms_per_step": runs, "us_per_event": per_event,
+            "tape_events": n}
+
+
+# --------------------------------------------------------------------------
+# phases 7-8: training
 # --------------------------------------------------------------------------
 
 def _train_runtime(probes=True):
@@ -947,7 +1342,8 @@ def train_full(torch, ops, cfg, steps=3, seq=4096, batch=4, microbatch=2):
     if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
                for h in hist):
         fail("training: a loss or gradient norm is not finite")
-    if any(v == 0 for v in launches.values()):
+    # the training path runs every kernel but the live lane's interpreter
+    if any(v == 0 for k, v in launches.items() if k != "table_interp"):
         fail(f"a kernel was not launched on the training path: {launches}")
     if launches["tensor_stats"] != sum(events):
         fail(f"tensor_stats launches {launches['tensor_stats']} != events "
@@ -980,7 +1376,7 @@ def train_full(torch, ops, cfg, steps=3, seq=4096, batch=4, microbatch=2):
 
 
 def train_profile(torch, cfg, state, rt, seq=4096, batch=4, microbatch=2):
-    """One more warm step, after phase 6's launches were read, under
+    """One more warm step, after phase 7's launches were read, under
     torch.profiler: device busy share, device time by kernel group and the
     collector's device operations per event."""
     from repro_torch.configs.base import ShapeConfig, TrainConfig
@@ -996,19 +1392,19 @@ def train_profile(torch, cfg, state, rt, seq=4096, batch=4, microbatch=2):
     groups = {"flash kernels": ("flash_",) + tuple(f"sm90::{k}"
                                                    for k in FLASH_SM90),
               **PROBE_GROUPS}
-    pwall, by_group, flash, ops = profiled(
+    pwall, by_group, flash, col = profiled(
         torch, lambda: step(state, b), groups, "flash kernels")
     busy = sum(by_group.values())
     return {"profiled_wall_ms": pwall * 1e3, "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / 1e6 / pwall,
             "device_ms_by_group": {g: v / 1e3 for g, v in by_group.items()},
-            "flash_kernels_device": flash, "collector_ops": ops}
+            "flash_kernels_device": flash, "collector_ops": col}
 
 
 def train_unprobed(torch, cfg, steps=2, seq=4096, batch=4, microbatch=2):
     """Steps of the same training run with no program attached (the
     collector sees no wanted site, no probe stage runs): seconds per step
-    from the top of the step to its end, as phase 6 times the probed
+    from the top of the step to its end, as phase 7 times the probed
     run."""
     from repro_torch.launch import train as T
     rt, _, begins = _train_runtime(probes=False)
@@ -1127,8 +1523,9 @@ def main(argv=None):
     from repro_torch.configs import registry
     from repro_torch.core import maps as M
     from repro_torch.kernels import (build, flash_attention as FA,
-                                     hash_update as HU, ops, ref,
-                                     ringbuf_emit as RB, tensor_stats as TS)
+                                     hash_update as HU, interp_cases as IC,
+                                     ops, ref, ringbuf_emit as RB,
+                                     tensor_stats as TS)
 
     name = torch.cuda.get_device_name(0)
     print(f"device: {name}, torch {torch.__version__}, CUDA "
@@ -1165,11 +1562,17 @@ def main(argv=None):
     ])
     rb_rows = check_ringbuf(torch, RB, ref, [
         ("path", 64, L2, 4), ("B<cap", 64, 40, 4), ("B>cap", 64, 4096, 4),
+        ("empty", 64, 0, 4),
     ])
+    rb_rows[0]["apply_device_ops"] = ringbuf_apply_ops(torch, RB, L2)
+    corpus = [(p.stem, json.loads(p.read_text()))
+              for p in sorted((ROOT / "tests" / "corpus").glob("*.json"))]
+    interp_rows = check_interp(torch, ops, IC, corpus)
     _, fa_fwd, fa_bwd = check_flash(torch, FA, ref)
     if kernels_only:
         print(json.dumps({"tensor_stats": ts_rows, "hash": hash_rows,
-                          "ringbuf": rb_rows, "flash_fwd": fa_fwd,
+                          "ringbuf": rb_rows, "interp": interp_rows,
+                          "flash_fwd": fa_fwd,
                           "flash_bwd": fa_bwd, "flash_sm90": sm90_build,
                           "probe_build": probe_build}))
         print(json.dumps({"ok": True, "kernels_only": True}))
@@ -1282,11 +1685,21 @@ def main(argv=None):
           "the device time goes", flush=True)
     times = timing(torch, cfg, engine.params)
     engine_steps, engine_events = engine.step_count, engine.events
-    del engine, x
-    torch.cuda.empty_cache()
 
     # ---- phase 6
-    print("phase 6: train qwen2-0.5b at full width, seq 4096, batch 4 in "
+    print("phase 6: the live lane while qwen2-0.5b serves at full width: "
+          "three programs hot-attached to the running decode step, one "
+          "detached, one promoted", flush=True)
+    live = live_serve(torch, ops, cfg, engine.params)
+    tape = next((rows, aux) for k, rows, _, aux, _ in live.pop("steps")
+                if k == 2)
+    live.update(live_timing(torch, cfg, engine.params, tape))
+    del engine, x, tape
+    gc.collect()          # links and runtimes refer to each other
+    torch.cuda.empty_cache()
+
+    # ---- phase 7
+    print("phase 7: train qwen2-0.5b at full width, seq 4096, batch 4 in "
           "microbatches of 2, remat, 3 steps", flush=True)
     train, state, rt = train_full(torch, ops, cfg)
     train["profiled_step"] = train_profile(torch, cfg, state, rt)
@@ -1295,8 +1708,8 @@ def main(argv=None):
     train["unprobed"] = train_unprobed(torch, cfg)
     torch.cuda.empty_cache()
 
-    # ---- phase 7
-    print("phase 7: one smoke-width training step at seq 4096, card vs CPU",
+    # ---- phase 8
+    print("phase 8: one smoke-width training step at seq 4096, card vs CPU",
           flush=True)
     train["smoke_card_vs_cpu"] = train_compare(torch, small)
 
@@ -1306,6 +1719,7 @@ def main(argv=None):
 
     hs_main = pick(hash_rows, "case", "path")
     rb_main = pick(rb_rows, "case", "path")
+    in_main = pick(interp_rows, "case", "mixed 49")
     tl = train["launches"]
 
     def entry(name, source, replaces, launch_count, err, row, shapes):
@@ -1329,6 +1743,10 @@ def main(argv=None):
         entry("ringbuf_emit_batch", "ringbuf_emit.cu",
               "src/repro/kernels/ringbuf_emit.py:17",
               launches["ringbuf_emit_batch"], 0, rb_main, rb_rows),
+        entry("table_interp", "table_interp.cu",
+              "none: src/repro/core/table_interp.py:88 _build_core and :573 "
+              "_build_batched_core are jnp/lax", live["launches"]
+              ["table_interp"], 0, in_main, interp_rows),
         entry("flash_fwd", "flash_attention_sm90.cuh",
               "src/repro/kernels/flash_attention.py:35", tl["flash_fwd"],
               fa_fwd["max_abs_err"], fa_fwd, [fa_fwd]),
@@ -1339,6 +1757,7 @@ def main(argv=None):
                  "decode_steps": engine_steps,
                  "tokens_per_s": tokens / wall, "events": engine_events,
                  **times},
+        "live": live,
         "train": train, "train_launches_of_serving_kernels": {
             k: tl[k] for k in serving_kernels},
         "flash_sm90_build": sm90_build, "probe_build": probe_build}

@@ -196,6 +196,66 @@ def _stack_store(stack, off: int, size: int, val, aligned: bool | None = None):
     return stack
 
 
+def _col(words, idx):
+    """words[..., idx[...]]: one word per lane at a per-lane index."""
+    return words.gather(-1, idx.unsqueeze(-1)).squeeze(-1)
+
+
+def _low_mask(nbits):
+    """(1 << nbits) - 1 for nbits in [0, 63], elementwise."""
+    return (torch.ones_like(nbits) << nbits) - 1
+
+
+def dyn_word_load(words, off, size):
+    """Little-endian load of `size` bytes at DYNAMIC byte offset `off` from
+    an i64 word array -- the traced-offset twin of `_stack_load`, used by
+    the program-table interpreter where offsets are data, not constants.
+    words [..., W], off and size i64[...] (one per lane). The verifier has
+    proven accesses in bounds before a program is table-encoded; indices
+    are clipped only to keep the gathers well-defined. Shift amounts are
+    masked to [0, 63] with guards for the rb == 0 / size == 8 edges."""
+    nwords = words.shape[-1]
+    w0 = (off >> 3).clamp(0, nwords - 1)
+    w1 = (w0 + 1).clamp(max=nwords - 1)
+    rb = off & 7
+    lo = U.lshr(_col(words, w0), 8 * rb)
+    hi_sh = (64 - 8 * rb) & 63
+    hi = torch.where(rb == 0, torch.zeros_like(lo),
+                     U.shl(_col(words, w1), hi_sh))
+    mask = torch.where(size >= 8, torch.full_like(size, -1),
+                       _low_mask((8 * size) & 63))
+    return (lo | hi) & mask
+
+
+def dyn_word_store(words, off, size, val):
+    """Little-endian store of the low `size` bytes of `val` at DYNAMIC byte
+    offset `off` into a copy of `words` -- the traced-offset twin of
+    `_stack_store`. Read-modify-writes the one or two covering words; the
+    second-word write is a self-assignment when the access doesn't span,
+    and it is written first, so it cannot clobber the word0 write even if
+    w1 was clipped onto w0. A lane with size 0 writes its words back
+    unchanged."""
+    nwords = words.shape[-1]
+    w0 = (off >> 3).clamp(0, nwords - 1)
+    w1 = (w0 + 1).clamp(max=nwords - 1)
+    rb = off & 7
+    v = torch.where(size >= 8, val, val & _low_mask((8 * size) & 63))
+    nb0 = torch.minimum(size, 8 - rb)             # bytes landing in word0
+    m0 = U.shl(torch.where(nb0 >= 8, torch.full_like(nb0, -1),
+                           _low_mask((8 * nb0) & 63)), 8 * rb)
+    old0, old1 = _col(words, w0), _col(words, w1)
+    new0 = (old0 & ~m0) | (U.shl(v, 8 * rb) & m0)
+    spans = (rb + size) > 8
+    m1 = _low_mask(8 * (rb + size - 8).clamp(0, 7))
+    sh1 = (8 * (8 - rb)) & 63
+    new1 = (old1 & ~m1) | (U.lshr(v, sh1) & m1)
+    out = words.clone()
+    out.scatter_(-1, w1.unsqueeze(-1),
+                 torch.where(spans, new1, old1).unsqueeze(-1))
+    out.scatter_(-1, w0.unsqueeze(-1), new0.unsqueeze(-1))
+    return out
+
+
 @dataclass
 class _Machine:
     regs: list          # 11 i64[B] tensors

@@ -8,17 +8,33 @@ Responsibilities:
       device:  uprobe:SITE / uretprobe:SITE / probe:SITE   (in the step)
       host:    tracepoint:SYS:enter|exit / filter:SYS      (interpreter)
   * the per-step probe-execution stage, run on the device inside the
-    train/serve step; every device attach/detach bumps `attach_epoch`.
+    train/serve step; every fused attach/detach bumps `attach_epoch`;
+  * attach/detach on a RUNNING step without rebuilding it: the live
+    program-table lane (`enable_live_attach` + `attach(mode="table")`)
+    encodes verified bytecode into a device-resident table read by one
+    interpreter kernel launch per probe stage -- dispatch is data, so a hot
+    attach is a buffer write (`attach_live`/`detach_live` remain as
+    deprecated shims);
+  * ONE attach API over all of it: `attach(pid, target, *, mode, promote)`
+    returns a `Link` (lane + slot + promotion state); `mode="auto"` routes
+    to the table lane when the program can land on the running step, and
+    `promote=True` arms background promotion -- `core/promote.py` builds
+    the fused-lane step off the critical path and `sync_live_table` swaps
+    it in at the next generation boundary, bit-identical.
 
-Not in this package yet: the live program-table lane, background
-promotion, the artifact cache and the shm control plane. Their entry
-points raise NotImplementedError; `publish` and `poll_control` are no-ops
-while no shm region is set up.
+Not in this package yet: the artifact cache and the shm control plane
+(the fleet slice). Their entry points raise NotImplementedError;
+`publish` and `poll_control` are no-ops while no shm region is set up.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
+import threading
+import warnings
 from dataclasses import dataclass, field
+
+import torch
 
 from . import events as E, jit as J, loader, maps as M, syscalls as S
 from . import vectorized as V
@@ -35,10 +51,8 @@ _AUX_RESOURCES = {"trace_printk": "printk", "override_return": "override",
 WIDEN_STATS = {"fused_disjoint_pairs": 0}
 
 _LATER = {
-    "live": "the live program-table lane comes with the live-lane slice",
-    "promote": "background promotion comes with the live-lane slice",
-    "cache": "the AOT artifact cache comes with the live-lane slice",
-    "shm": "the shm control plane comes with the fleet slice",
+    "cache": "the artifact cache comes with the fleet slice (ROADMAP A11)",
+    "shm": "the shm control plane comes with the fleet slice (ROADMAP A11)",
 }
 
 
@@ -97,13 +111,23 @@ class LoadedProg:
 
 @dataclass(eq=False)
 class Link:
-    """Handle for one attachment. ``lane`` is ``"fused"`` (run in the step)
-    or ``"host"`` (syscall tracepoints/filters). The handle coerces to its
-    integer link id, so it can be passed back to ``Runtime.detach``."""
+    """Handle for one attachment, whatever lane it executes on.
+
+    ``lane`` is where the program runs right now: ``"fused"`` (in the
+    step's static lanes), ``"table"`` (live program-table interpreter) or
+    ``"host"`` (syscall tracepoints/filters). A table link carries its
+    ``slot`` and a ``promotion_state`` driven by core/promote.py:
+    ``interp -> compiling -> ready -> fused`` (or ``cancelled``/``failed``).
+    The handle coerces to its integer link id, so it can be passed back to
+    ``Runtime.detach``."""
     link_id: int
     pid: int
     target: str
     lane: str = "fused"
+    slot: int | None = None
+    promotion_state: str = "none"
+    promote: bool = False
+    promotion_error: str | None = None
     _parsed: tuple | None = field(default=None, repr=False)
     _rt: object = field(default=None, repr=False)
 
@@ -133,15 +157,22 @@ class BpftimeRuntime:
         self.syscalls = S.SyscallTable(self.host_maps, self.map_specs,
                                        pid=pid)
         self.shm = None
-        # the live lane, background promotion and the artifact cache come
-        # with later slices; the training loop reads these as the JAX
-        # runtime's
-        self.live = None
-        self.artifact_cache = None
-        self._promoter = None
         # 'fused' (default): single-pass multi-program dispatch;
         # 'scan' / 'vectorized': the per-attachment paths.
         self.exec_mode = "fused"
+        # live program-table lane (enable_live_attach)
+        self.live = None
+        self._armed: set[tuple[int, int]] = set()
+        self._live_slot_of: dict[int, int] = {}   # link_id -> table slot
+        self._synced_gen = 0                      # last gen pushed to device
+        self._table_staging = None   # host snapshot of the last table push
+        # background promotion (enable_promotion / core/promote.py)
+        self._promoter = None
+        self._promoted_step = None    # step built by a promotion, for pickup
+        self._overlay_tls = threading.local()
+        # the artifact cache comes with the fleet slice (A11); the training
+        # loop reads this as the JAX runtime's
+        self.artifact_cache = None
 
     # ---------------------------------------------------------------- maps
     def create_map(self, spec: MapSpec) -> int:
@@ -159,8 +190,12 @@ class BpftimeRuntime:
         return fd
 
     def init_device_maps(self, device="cuda") -> dict:
-        """Zeroed device state of every registered map, on `device`."""
-        return M.init_states(self.map_specs, device)
+        """Zeroed device state of every registered map, on `device`, and
+        the live table (`__live_table__`) when the live lane is on."""
+        st = M.init_states(self.map_specs, device)
+        if self.live is not None:
+            st["__live_table__"] = self.live.device_state(device)
+        return st
 
     # ---------------------------------------------------------------- load
     def load_object(self, obj: ProgramObject) -> int:
@@ -200,7 +235,7 @@ class BpftimeRuntime:
                                   ctx_words=ctx_words)
         return self.load_object(obj)
 
-    # ---------------------------------------------------------------- attach
+    # ---------------------------------------------------------------- live lane
     @staticmethod
     def _parse_device_target(target: str):
         """(site_id, event_kind) for a device target, None for host targets."""
@@ -211,27 +246,168 @@ class BpftimeRuntime:
                    "probe": E.KIND_TRACEPOINT}[parts[0]]
         return E.SITES.get_or_create(parts[1]), ev_kind
 
+    def enable_live_attach(self, max_programs: int = 4, max_insns: int = 64,
+                           arm=()):
+        """Opt into the program-table interpreter lane. Must run BEFORE the
+        step is built (the table joins the map state and the interpreter
+        joins probe_stage) -- after which table attaches and detaches never
+        rebuild it. `arm` pre-declares device targets whose events are
+        collected even with no program attached (the paper's patched-but-
+        idle trampoline), since a built step's collector is fixed."""
+        from .table_interp import LiveTable
+        self.live = LiveTable(list(self.map_specs),
+                              ctx_words=E.EVENT_WIDTH,
+                              max_programs=max_programs,
+                              max_insns=max_insns)
+        for target in arm:
+            self.arm_site(target)
+        self.attach_epoch += 1
+        return self.live
+
+    def arm_site(self, target: str) -> None:
+        """Collect events for a device target so hot-attached programs can
+        consume them. Changes what a step collects (bump epoch); call
+        before the step is built."""
+        parsed = self._parse_device_target(target)
+        if parsed is None:
+            raise ValueError(f"cannot arm non-device target {target!r}")
+        if parsed not in self._armed:
+            self._armed.add(parsed)
+            self.attach_epoch += 1
+
+    def attach_live(self, pid: int, target: str) -> Link:
+        """Deprecated shim -- use ``attach(pid, target, mode="table")``."""
+        warnings.warn(
+            "attach_live() is deprecated; use "
+            "attach(pid, target, mode='table')", DeprecationWarning,
+            stacklevel=2)
+        return self.attach(pid, target, mode="table", promote=False)
+
+    def detach_live(self, link_id) -> None:
+        """Deprecated shim -- use ``detach(link)`` / ``link.detach()``."""
+        warnings.warn("detach_live() is deprecated; use detach()",
+                      DeprecationWarning, stacklevel=2)
+        self.detach(link_id)
+
+    def _attach_table(self, pid: int, target: str, promote: bool) -> Link:
+        """Attach a loaded+verified program to an already-built step via the
+        live table: encode into a free slot, bump the generation counter.
+        NO attach_epoch bump -- the caller pushes the new table with
+        sync_live_table() and keeps using the same step."""
+        if self.live is None:
+            raise loader.LoadError("enable_live_attach() was not called "
+                                   "before the step was built")
+        prog = self.progs[pid]
+        parsed = self._parse_device_target(target)
+        if parsed is None:
+            raise ValueError(f"live attach needs a device target, got "
+                             f"{target!r}")
+        from .verifier import check_table_encodable
+        check_table_encodable(prog.vprog, n_maps=self.live.n_maps,
+                              max_insns=self.live.max_insns,
+                              ctx_words=self.live.ctx_words)
+        slot = self.live.free_slot()
+        if slot is None:
+            raise loader.LoadError(
+                f"live table full ({self.live.max_programs} slots)")
+        sid, ev_kind = parsed
+        self.live.encode_slot(slot, prog.vprog, sid, ev_kind, pid=pid,
+                              cache=self.artifact_cache)
+        lid = next(self._next_link)
+        link = Link(lid, pid, target, lane="table", slot=slot,
+                    promotion_state="interp", promote=promote,
+                    _parsed=parsed, _rt=self)
+        self.links[lid] = link
+        self._live_slot_of[lid] = slot
+        if promote and self._promoter is not None:
+            self._promoter.schedule(link)
+        return link
+
+    def _table_attachable(self, pid: int, parsed) -> bool:
+        """mode="auto" heuristic: route through the live table iff it can
+        actually execute the program RIGHT NOW without rebuilding the step
+        -- the lane exists, the target site's events are already collected
+        (armed or statically attached), a slot is free, and the bytecode is
+        encodable. Anything else falls back to the fused (epoch-bump) path,
+        which can always host the program."""
+        if self.live is None or parsed is None:
+            return False
+        if parsed not in self.wanted_sites():
+            return False               # a built collector never fires it
+        if self.live.free_slot() is None:
+            return False
+        from .verifier import VerifierError, check_table_encodable
+        try:
+            check_table_encodable(self.progs[pid].vprog,
+                                  n_maps=self.live.n_maps,
+                                  max_insns=self.live.max_insns,
+                                  ctx_words=self.live.ctx_words)
+        except VerifierError:
+            return False
+        return True
+
+    def sync_live_table(self, map_states, force: bool = False):
+        """Push the host-side table into the step's device table buffers IN
+        PLACE: shapes and buffers are unchanged, so the running step picks
+        the new programs up on its next call. The copy reads a fresh host
+        snapshot that nothing modifies before it lands (pinned, on the
+        current stream). Generation-gated: an idle call (no attach/detach
+        since the last sync) returns at once, so a loop can call it every
+        step. Promotions that are ready swap in first (a generation
+        boundary is a promotion boundary)."""
+        if self.live is None or "__live_table__" not in map_states:
+            return map_states
+        if self._promoter is not None:
+            # clears the promoted links' slots, so the gen check below
+            # pushes the new table in the same call
+            self._promoter.apply_ready()
+        gen = int(self.live.host["gen"][0])
+        if not force and gen == self._synced_gen:
+            return map_states
+        self._synced_gen = gen
+        dst = map_states["__live_table__"]["packed"]
+        host = torch.from_numpy(self.live.packed())
+        if dst.is_cuda:
+            host = host.pin_memory()
+            dst.copy_(host, non_blocking=True)
+        else:
+            dst.copy_(host)
+        self._table_staging = host
+        return map_states
+
+    # ---------------------------------------------------------------- attach
     def attach(self, pid: int, target: str, *, mode: str = "auto",
-               promote: bool = False) -> Link:
-        """Attach a loaded program.
+               promote: bool = True) -> Link:
+        """Attach a loaded program; ONE entry point for every lane.
 
         target: uprobe:SITE | uretprobe:SITE | probe:SITE |
         tracepoint:SYS:enter|exit | filter:SYS
 
-        mode "auto" and "fused" put a device target on the fused lane (an
-        attach_epoch bump); host targets take the host lane. mode "table"
-        and promote=True need the live lane, which this package does not
-        have yet."""
+        mode:
+          * "auto" (default) -- device targets go through the live table
+            when that is free (live lane enabled, site armed/collected,
+            slot available, bytecode encodable): instant attach, no
+            rebuild; otherwise the fused path (attach_epoch bump -> the
+            loop rebuilds its step). Host targets always take the host
+            lane.
+          * "fused" -- force the epoch-bumping path.
+          * "table" -- force the live table; raises if unavailable.
+
+        promote: table-lane links are handed to the promotion engine
+        (enable_promotion), which builds the fused-lane step in the
+        background and swaps it in at the next generation boundary.
+        promote=False pins the link to the interpreter.
+
+        Returns a Link handle (``link.lane``, ``link.promotion_state``,
+        ``link.detach()``); it coerces to its integer link id."""
         if mode not in ("auto", "fused", "table"):
             raise ValueError(f"bad attach mode {mode!r}")
-        if mode == "table":
-            raise NotImplementedError(_LATER["live"])
-        if promote:
-            raise NotImplementedError(_LATER["promote"])
         prog = self.progs[pid]
         parsed = self._parse_device_target(target)
-        lid = next(self._next_link)
         if parsed is None:                               # host lane
+            if mode == "table":
+                raise ValueError(f"live attach needs a device target, got "
+                                 f"{target!r}")
             parts = target.split(":")
             if parts[0] == "tracepoint":
                 self.syscalls.attach(parts[1], parts[2], prog.name,
@@ -241,18 +417,31 @@ class BpftimeRuntime:
                                      prog.insns, self.map_specs)
             else:
                 raise ValueError(f"bad attach target {target!r}")
+            lid = next(self._next_link)
             link = Link(lid, pid, target, lane="host", _rt=self)
-        else:
-            self.device_attach.setdefault(parsed, []).append(pid)
-            self.attach_epoch += 1
-            link = Link(lid, pid, target, lane="fused", _parsed=parsed,
-                        _rt=self)
+            self.links[lid] = link
+            return link
+        if mode == "table" or (mode == "auto"
+                               and self._table_attachable(pid, parsed)):
+            return self._attach_table(pid, target, promote)
+        self.device_attach.setdefault(parsed, []).append(pid)
+        self.attach_epoch += 1
+        lid = next(self._next_link)
+        link = Link(lid, pid, target, lane="fused", _parsed=parsed,
+                    _rt=self)
         self.links[lid] = link
         return link
 
     def detach(self, link) -> None:
-        """Detach by Link handle or integer link id."""
-        lk = self.links.pop(int(link))
+        """Detach by Link handle or integer link id (any lane)."""
+        link_id = int(link)
+        lk = self.links.pop(link_id)
+        if lk.lane == "table":
+            if lk.promotion_state in ("compiling", "ready"):
+                lk.promotion_state = "cancelled"   # promotion backs off
+            slot = self._live_slot_of.pop(link_id)
+            self.live.clear_slot(slot)
+            return
         prog = self.progs[lk.pid]
         parts = lk.target.split(":")
         kind = parts[0]
@@ -269,29 +458,85 @@ class BpftimeRuntime:
         elif kind == "filter":
             self.syscalls.detach(parts[1], "enter", prog.name)
 
-    # ---------------------------------------------------------------- later
-    def enable_live_attach(self, *args, **kwargs):
-        raise NotImplementedError(_LATER["live"])
+    def layout_fingerprint(self, attach_sig: tuple | None = None,
+                           extra: tuple = ()) -> str:
+        """Canonical key of a step built against THIS runtime's world: map
+        registry (fd order), event-row width, live table dims, plus the
+        static attach signature the step's lanes read (defaults to the
+        current device_attach)."""
+        from . import layout as L
+        from .promote import attach_signature
+        if attach_sig is None:
+            attach_sig = attach_signature(self.device_attach)
+        dims = ()
+        if self.live is not None:
+            dims = (self.live.max_programs, self.live.max_insns,
+                    self.live.n_maps, self.live.ctx_words)
+        return L.layout_fingerprint(self.map_specs, E.EVENT_WIDTH,
+                                    table_dims=dims, attach_sig=attach_sig,
+                                    extra=extra)
 
-    def arm_site(self, target: str) -> None:
-        raise NotImplementedError(_LATER["live"])
+    # ---------------------------------------------------------------- promote
+    def enable_promotion(self, step_builder, example_args,
+                         background: bool = True):
+        """Arm background promotion of table-lane links.
 
-    def sync_live_table(self, map_states, force: bool = False):
-        """Push a live-table change onto the running step. With no live
-        lane (always, in this package so far) the states come back
-        untouched, as in the JAX runtime."""
-        if self.live is None:
-            return map_states
-        raise NotImplementedError(_LATER["live"])
+        step_builder() must return a fresh step built against this
+        runtime's current attach state; example_args are the arguments the
+        loop calls the step with (kept for the signature: eager PyTorch
+        has no ahead-of-time lowering, so they are unused). Existing table
+        links attached with promote=True are scheduled immediately.
+        background=False builds synchronously inside schedule() --
+        deterministic, for tests."""
+        from .promote import PromotionEngine
+        self._promoter = PromotionEngine(self, step_builder, example_args,
+                                         background=background)
+        for lk in self.links.values():
+            if lk.lane == "table" and lk.promote:
+                self._promoter.schedule(lk)
+        return self._promoter
 
     def take_promoted_step(self):
-        """The step a background promotion compiled, if one is ready:
-        never, without promotion."""
-        return None
+        """Hand the loop the step built by the last promotion (or None).
+        Pattern: on attach_epoch change, try this before rebuilding."""
+        step, self._promoted_step = self._promoted_step, None
+        return step
 
-    def enable_promotion(self, *args, **kwargs):
-        raise NotImplementedError(_LATER["promote"])
+    def _promote_table_link(self, link: Link, compiled) -> None:
+        """The atomic swap, called by PromotionEngine.apply_ready at a
+        generation boundary: retire the table slot and install the static
+        attachment in one host-side critical section, so the very next
+        step executes the program on the fused lane exactly once."""
+        slot = self._live_slot_of.pop(link.link_id)
+        self.live.clear_slot(slot)              # gen bump -> table resync
+        self.device_attach.setdefault(link._parsed, []).append(link.pid)
+        self.attach_epoch += 1                  # loop picks a new step
+        link.lane, link.slot = "fused", None
+        link.promotion_state = "fused"
+        self._promoted_step = compiled
 
+    @contextlib.contextmanager
+    def _attach_overlay(self, extra: dict):
+        """Thread-locally overlay extra device attachments -- the promotion
+        engine builds the FUTURE attach state through this while the
+        foreground step keeps seeing the present."""
+        prev = getattr(self._overlay_tls, "extra", None)
+        self._overlay_tls.extra = extra
+        try:
+            yield
+        finally:
+            self._overlay_tls.extra = prev
+
+    def _effective_attach(self) -> dict:
+        extra = getattr(self._overlay_tls, "extra", None)
+        if not extra:
+            return self.device_attach
+        merged = {k: list(v) for k, v in self.device_attach.items()}
+        for k, pids in extra.items():
+            merged.setdefault(k, []).extend(pids)
+        return merged
+
+    # ---------------------------------------------------------------- later
     def enable_artifact_cache(self, *args, **kwargs):
         raise NotImplementedError(_LATER["cache"])
 
@@ -300,7 +545,7 @@ class BpftimeRuntime:
 
     # ---------------------------------------------------------------- device
     def wanted_sites(self) -> set[tuple[int, int]]:
-        return set(self.device_attach.keys())
+        return set(self._effective_attach().keys()) | self._armed
 
     def collector(self, stats_fn=None) -> E.Collector:
         return E.Collector(self.wanted_sites(), stats_fn=stats_fn)
@@ -315,12 +560,30 @@ class BpftimeRuntime:
         effects applied once per call site; the remaining programs share one
         combined scan. 'scan' / 'vectorized' keep the per-attachment
         behaviour (oracle for differential tests). Map states are never
-        written in place: new states are returned."""
-        return self._static_lanes(event_rows, map_states, aux,
-                                  mode or self.exec_mode)
+        written in place: new states are returned.
+
+        When the live lane is enabled, a third stage runs after the static
+        lanes: one launch of the table interpreter over the tape, whatever
+        the synced `__live_table__` holds (the host never reads it)."""
+        mode = mode or self.exec_mode
+        table = None
+        if "__live_table__" in map_states:
+            table = map_states["__live_table__"]
+            map_states = {k: v for k, v in map_states.items()
+                          if k != "__live_table__"}
+        map_states, aux = self._static_lanes(event_rows, map_states, aux,
+                                             mode)
+        if table is not None:
+            if self.live is not None and event_rows.shape[0] > 0:
+                map_states, aux = self.live.run(table, event_rows,
+                                                map_states, aux)
+            map_states = {**map_states, "__live_table__": table}
+        return map_states, aux
 
     def _static_lanes(self, event_rows, map_states, aux, mode):
-        device_attach = self.device_attach
+        # a promotion builds through a thread-local overlay that already
+        # contains the link being promoted (see _attach_overlay)
+        device_attach = self._effective_attach()
         if event_rows.shape[0] == 0 or not device_attach:
             return map_states, aux
         if mode == "fused":
@@ -391,7 +654,8 @@ class BpftimeRuntime:
 
 
 def to_numpy(map_states) -> dict:
-    """{map: {field: numpy array}} copy of a device map state."""
+    """{map: {field: numpy array}} copy of a device map state (the live
+    table, `__live_table__`, is not a map and is left out)."""
     return {name: {f: a.detach().cpu().numpy() for f, a in st.items()}
-            for name, st in map_states.items()}
+            for name, st in map_states.items() if name != "__live_table__"}
 

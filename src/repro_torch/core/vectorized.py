@@ -196,16 +196,11 @@ def _apply_site(vp, name, statics, rec, maps_state, aux):
     elif name == "ringbuf_output":
         sp = vp.map_specs[statics[0]]
         st = maps_state[sp.name]
-        head0 = st["head"][0]
-        d, h = ops.ringbuf_emit_batch(st["data"], st["head"], rec[1], ok)
-        # dropped accounting, batch form: the i-th valid record lands at
-        # monotonic position head0 + rank(i); it laps (overwrites an unread
-        # record) when that position >= capacity.
-        rank = torch.cumsum(ok.to(I64), 0) - 1
-        lapped = (ok & (head0 + rank >= sp.max_entries)).to(I64).sum()
+        # one launch: the rows, the head and the dropped (lap) count
+        d, h, dr = ops.ringbuf_emit_batch(st["data"], st["head"],
+                                          st["dropped"], rec[1], ok)
         maps_state = {**maps_state,
-                      sp.name: {"data": d, "head": h,
-                                "dropped": st["dropped"] + lapped}}
+                      sp.name: {"data": d, "head": h, "dropped": dr}}
     elif name == "override_return":
         any_ok = ok.any()
         first = torch.argmax(ok.to(torch.int32))

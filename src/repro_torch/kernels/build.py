@@ -19,7 +19,7 @@ import time
 from pathlib import Path
 
 SOURCES = ("tensor_stats", "hash_update", "ringbuf_emit",
-           "flash_attention")
+           "flash_attention", "table_interp")
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

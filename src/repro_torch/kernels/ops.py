@@ -9,13 +9,14 @@ from __future__ import annotations
 import torch
 
 from . import (flash_attention as fa, hash_update, ref, ringbuf_emit,
-               tensor_stats as ts)
+               table_interp as ti, tensor_stats as ts)
 from .build import on_card
 
 # kernel name -> (module, name of its launch counter)
 KERNELS = {"tensor_stats": (ts, "LAUNCHES"),
            "hash_fetch_add_batch": (hash_update, "LAUNCHES"),
            "ringbuf_emit_batch": (ringbuf_emit, "LAUNCHES"),
+           "table_interp": (ti, "LAUNCHES"),
            "flash_fwd": (fa, "FWD_LAUNCHES"),
            "flash_bwd": (fa, "BWD_LAUNCHES")}
 
@@ -51,11 +52,30 @@ def hash_fetch_add_batch(keys_tbl, used_tbl, vals_tbl, keys, deltas, valid):
                                     deltas, valid)
 
 
-def ringbuf_emit_batch(data, head, rows, valid):
+def ringbuf_emit_batch(data, head, dropped, rows, valid):
+    """The RINGBUF apply: (data, head, dropped) after appending the valid
+    rows, in one kernel launch for a CUDA ring."""
     if on_card(data, "ringbuf_emit_batch"):
         return ringbuf_emit.ringbuf_emit_batch_cuda(
-            data, head, rows.contiguous(), valid.contiguous())
-    return ref.ringbuf_emit_batch(data, head, rows, valid)
+            data, head, dropped, rows.contiguous(), valid.contiguous())
+    return ref.ringbuf_emit_batch(data, head, dropped, rows, valid)
+
+
+def table_interp_run(spec_key, table, rows, maps, aux, *,
+                     match_all: bool = False, want_r0: bool = False):
+    """The live lane's interpreter over one tape i64[E, ctx_words]: one
+    kernel launch for a CUDA tape, the plain `core.table_interp.run_plain`
+    for a CPU tape. table: `LiveTable.device_state` (its "packed"
+    buffer); maps: the states of the maps in `spec_key`, in any order.
+    Returns new (maps, aux, r0 i64[P, E] or None); the inputs are not
+    written."""
+    if on_card(rows, "table_interp"):
+        return ti.table_interp_cuda(spec_key, table, rows.contiguous(), maps,
+                                    aux, match_all=match_all,
+                                    want_r0=want_r0)
+    from ..core.table_interp import run_plain
+    return run_plain(spec_key, table, rows, maps, aux, match_all=match_all,
+                     want_r0=want_r0)
 
 
 def flash_attention(q, k, v, causal: bool = True):

@@ -122,18 +122,23 @@ def hash_fetch_add_batch(keys_tbl, used_tbl, vals_tbl, keys, deltas, valid):
 # ringbuf_emit_batch: append valid rows at head, head advances per valid row
 # --------------------------------------------------------------------------
 
-def ringbuf_emit_batch(data, head, rows, valid):
-    """data: i64[cap, W]; head: i64[1]; rows: i64[B, W]; valid: bool[B].
-    Returns new (data, head); the inputs are not written."""
+def ringbuf_emit_batch(data, head, dropped, rows, valid):
+    """data: i64[cap, W]; head, dropped: i64[1]; rows: i64[B, W]; valid:
+    bool[B]. Returns new (data, head, dropped); the inputs are not
+    written. Each valid row is one `maps.t_ringbuf_emit`: it lands at head
+    % cap, and it laps (overwrites an unread record, dropped + 1) when the
+    head is at or past cap."""
     cap = data.shape[0]
     d = data.clone()
     h = head.clone()
+    dr = dropped.clone()
     for b in range(rows.shape[0]):
         ok = valid[b]
         slot = h[0] % cap
         d[slot] = torch.where(ok, rows[b], d[slot])
+        dr = dr + (ok & (h[0] >= cap)).to(I64)
         h = h + ok.to(I64)
-    return d, h
+    return d, h, dr
 
 
 # --------------------------------------------------------------------------

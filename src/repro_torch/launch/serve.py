@@ -80,6 +80,62 @@ SERVE_PROBES = [
 ]
 
 
+# The live-lane programs chip_smoke.py hot-attaches while serving, each on
+# a map of its own and on integer fields only: a per-layer ARRAY counter
+# (a vec slot), a RINGBUF record of each logits event (a sequential slot),
+# a LOG2HIST of block sizes (a vec slot), and a per-layer HASH counter (the
+# one that is promoted to the fused lane). LIVE_ARM are the sites a
+# serving step collects for them before anything is attached.
+_RB_LIVE = """
+    ldxdw r6, [r1+ctx:step]
+    stxdw [r10-32], r6
+    ldxdw r6, [r1+ctx:numel]
+    stxdw [r10-24], r6
+    ldxdw r6, [r1+ctx:layer]
+    stxdw [r10-16], r6
+    ldxdw r6, [r1+ctx:kind]
+    stxdw [r10-8], r6
+    lddw r1, map:lv_logits_rb
+    mov r2, r10
+    add r2, -32
+    mov r3, 32
+    mov r4, 0
+    call ringbuf_output
+    mov r0, 0
+    exit
+"""
+_HIST_NUMEL = """
+    ldxdw r2, [r1+ctx:numel]
+    lddw r1, map:lv_numel_hist
+    call hist_add
+    mov r0, 0
+    exit
+"""
+LIVE_PROBES = [
+    ("lv_count", _COUNT.format(map="lv_layer_counts"),
+     ("lv_layer_counts", "array", 128, 4), "uprobe:block"),
+    ("lv_rb", _RB_LIVE, ("lv_logits_rb", "ringbuf", 64, 4), "probe:logits"),
+    ("lv_hist", _HIST_NUMEL, ("lv_numel_hist", "log2hist", 64, 4),
+     "uretprobe:block"),
+    ("lv_hash", _COUNT.format(map="lv_key_hash"),
+     ("lv_key_hash", "hash", 256, 4), "uprobe:block"),
+]
+LIVE_ARM = ("uprobe:block", "uretprobe:block", "probe:logits")
+
+
+def load_live_probes(rt) -> dict:
+    """Create LIVE_PROBES' maps and load the programs into `rt` (attached
+    nowhere); returns {name: pid}. Call before `enable_live_attach`, so the
+    live table knows the maps."""
+    from ..core.maps import MapKind, MapSpec
+    pids = {}
+    for name, text, (mname, kind, n, w), _ in LIVE_PROBES:
+        spec = MapSpec(mname, MapKind(kind), n, rec_width=w)
+        rt.create_map(spec)
+        pids[name] = rt.load_asm(name, text, [spec], "uprobe")
+    return pids
+
+
 def attach_serve_probes(rt):
     """Load SERVE_PROBES into `rt` and attach them on the fused lane;
     returns the links."""

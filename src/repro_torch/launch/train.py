@@ -9,8 +9,11 @@ here (the paper's workflow, §3.2):
   * probes attach/detach between steps WITHOUT restarting training -- an
     attach_epoch change rebuilds the step, state carries over;
   * per-step syscalls (data fetch, step begin and end) run their eBPF
-    hooks; a filter program on sys_data_fetch can veto batches.
-The shm control plane, the AOT artifact cache and checkpoints come with
+    hooks; a filter program on sys_data_fetch can veto batches;
+  * with the live lane on, table attaches land on the running step at the
+    next `sync_live_table`, and promoted links hand the loop the step
+    their promotion built.
+The shm control plane, the artifact cache and checkpoints come with
 later slices: asking for them raises NotImplementedError.
 
 TRAIN_PROBES is the instrumentation chip_smoke.py trains with.
@@ -122,8 +125,8 @@ def run_training(arch: str, *, steps: int = 20, smoke: bool = True,
         raise NotImplementedError("the shm control plane (shm_dir) comes "
                                   "with the fleet slice (ROADMAP A11)")
     if cache_dir:
-        raise NotImplementedError("the AOT artifact cache (cache_dir) comes "
-                                  "with the live-lane slice (ROADMAP A10)")
+        raise NotImplementedError("the artifact cache (cache_dir) comes "
+                                  "with the fleet slice (ROADMAP A11)")
     if ckpt_dir:
         raise NotImplementedError("checkpoints (ckpt_dir) come with the "
                                   "distribution and tooling slice "
@@ -142,15 +145,27 @@ def run_training(arch: str, *, steps: int = 20, smoke: bool = True,
 
     step_fns: dict[int, object] = {}
 
+    def build_step():
+        return make_train_step(cfg, tcfg, runtime, probe_mode=probe_mode)
+
     def get_step_fn():
         """The step for the current attach set: rebuilt when a probe is
-        attached or detached, so the state carries over."""
+        attached or detached, so the state carries over. A promoted table
+        link hands over the step its promotion built (core/promote.py)."""
         epoch = runtime.attach_epoch if runtime else 0
         if epoch not in step_fns:
             promoted = runtime.take_promoted_step() if runtime else None
-            step_fns[epoch] = promoted or make_train_step(
-                cfg, tcfg, runtime, probe_mode=probe_mode)
+            step_fns[epoch] = promoted or build_step()
         return step_fns[epoch]
+
+    def arm_promotion(batch_np):
+        """Hand the promotion engine the loop's step builder and its call
+        arguments, so table-lane links attached later converge to the
+        fused lane without a build in the loop."""
+        if runtime is None or runtime.live is None \
+                or runtime._promoter is not None:
+            return
+        runtime.enable_promotion(build_step, (state, batch_np))
 
     history = []
     t0 = time.time()
@@ -170,6 +185,7 @@ def run_training(arch: str, *, steps: int = 20, smoke: bool = True,
                     f"row -- a filter is vetoing every fetch")
             continue
         skips = 0
+        arm_promotion(batch_np)              # no-op after the first batch
         state, metrics = get_step_fn()(state, batch_np)
         history.append({k: float(v) for k, v in metrics.items()})
         s = int(state["step"])

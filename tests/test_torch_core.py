@@ -750,6 +750,10 @@ training = {"repro_torch.kernels.flash_attention", "repro_torch.optim",
             "repro_torch.optim.optimizers", "repro_torch.data.pipeline",
             "repro_torch.train.train_step", "repro_torch.launch.train"}
 assert training <= set(names), training - set(names)
+live = {"repro_torch.core.table_interp", "repro_torch.core.promote",
+        "repro_torch.core.callback_probe", "repro_torch.kernels.table_interp",
+        "repro_torch.kernels.interp_cases"}
+assert live <= set(names), live - set(names)
 print(len(names))
 """
     env = dict(os.environ)
@@ -757,4 +761,4 @@ print(len(names))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 54
+    assert int(out.stdout.strip()) >= 59

@@ -7,6 +7,9 @@ file imports no JAX, so it also runs where JAX is not installed:
 A change to the probe kernels is brought up with `-k "stats or hash"`
 first.
 """
+import json
+from pathlib import Path
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -274,17 +277,125 @@ def test_hash_kernel_batch_table_in_scratch(cuda):
 
 @pytest.mark.parametrize("batch", [0, 40, 4096])
 def test_ringbuf_kernel_matches_plain(cuda, batch):
+    """Rows, head and the dropped (lap) count; the head starts past cap, so
+    every row laps, and at 4096 rows only the last 64 stay."""
     rng = np.random.default_rng(batch)
     args = [torch.as_tensor(a, device=cuda) for a in (
-        rng.integers(-5, 5, (64, 4)), np.array([70]),
+        rng.integers(-5, 5, (64, 4)), np.array([70]), np.array([3]),
         rng.integers(-99, 99, (batch, 4)).reshape(batch, 4),
         rng.random(batch) < 0.6)]
+    got = TRB.ringbuf_emit_batch_cuda(*args)
+    for g, w in zip(got, TREF.ringbuf_emit_batch(*args)):
+        assert torch.equal(g, w)
+    assert int(got[2]) - 3 == int(args[4].sum())
+
+
+@pytest.mark.parametrize("head", [0, 30, 63, 64])
+def test_ringbuf_kernel_laps_from_any_head(cuda, head):
+    """The first lap at rank cap - head, counted in closed form."""
+    rng = np.random.default_rng(head)
+    args = [torch.as_tensor(a, device=cuda) for a in (
+        np.zeros((64, 2), np.int64), np.array([head]), np.array([0]),
+        rng.integers(-99, 99, (100, 2)), rng.random(100) < 0.8)]
     for g, w in zip(TRB.ringbuf_emit_batch_cuda(*args),
                     TREF.ringbuf_emit_batch(*args)):
         assert torch.equal(g, w)
 
 
-# ------------------------------------------------------ flash attention
+def test_ringbuf_apply_is_one_launch(cuda):
+    """The fused lane's RINGBUF apply is one kernel launch that writes
+    data, head and dropped, equal to the same apply on the CPU."""
+    from repro_torch.core import jit as J
+    from repro_torch.core.runtime import BpftimeRuntime
+    from repro_torch.launch import serve as L
+    name, text, spec, target = L.SERVE_PROBES[3]
+    rt = BpftimeRuntime()
+    pid = rt.load_asm(name, text, [M.MapSpec(spec[0], M.MapKind(spec[1]),
+                                             spec[2], rec_width=spec[3])])
+    rt.attach(pid, target, mode="fused")
+    rows = np.zeros((300, 16), np.int64)
+    rows[:, 0] = TE.SITES.get_or_create("logits")
+    rows[:, 1] = TE.KIND_TRACEPOINT
+    rows[:, 3:10] = np.random.default_rng(1).integers(0, 1 << 30, (300, 7))
+    out = {}
+    for dev in (cuda, "cpu"):
+        ops.reset_launch_counts()
+        maps, _ = rt.probe_stage(torch.as_tensor(rows, device=dev),
+                                 rt.init_device_maps(dev),
+                                 J.make_aux(device=dev))
+        out[str(dev)] = {f: t.cpu() for f, t in maps[spec[0]].items()}
+        if dev == cuda:
+            assert ops.launch_counts()["ringbuf_emit_batch"] == 1
+    for f in ("data", "head", "dropped"):
+        assert torch.equal(out[str(cuda)][f], out["cpu"][f]), f
+    assert int(out["cpu"]["dropped"]) == 300 - 64
+
+
+# ------------------------------------------------- table interpreter
+
+CORPUS = sorted(Path(__file__).with_name("corpus").glob("*.json"))
+
+
+def _interp_check(case, match_all):
+    from repro_torch.kernels import interp_cases as IC
+    got = ops.table_interp_run(*case, match_all=match_all, want_r0=True)
+    want = ops.table_interp_run(*IC.to_cpu(case), match_all=match_all,
+                                want_r0=True)
+    assert IC.compare(IC.to_cpu(got), want) == []
+
+
+@pytest.mark.parametrize("events", [1, 49, 4096])
+def test_interp_kernel_mixed_table_matches_plain(cuda, events):
+    """Eight slots on both sub-lanes: counters, a HASH map that fills, a
+    ringbuf that laps, every other helper, loops whose fuel runs out."""
+    from repro_torch.kernels import interp_cases as IC
+    _interp_check(IC.mixed_case(events, events, cuda), False)
+
+
+@pytest.mark.parametrize("events", [49, 4096])
+def test_interp_kernel_isa_traps_match_plain(cuda, events):
+    """Unsigned and by-zero DIV/MOD, shift masking, ALU32, unaligned
+    sub-word stack access, jmp32 and unsigned compares."""
+    from repro_torch.kernels import interp_cases as IC
+    _interp_check(IC.traps_case(events, events, cuda), True)
+
+
+@pytest.mark.parametrize("vec", [False, True])
+@pytest.mark.parametrize("events", [49, 4096])
+@pytest.mark.parametrize("path", CORPUS, ids=[p.stem for p in CORPUS])
+def test_interp_kernel_corpus_matches_plain(cuda, path, events, vec):
+    from repro_torch.kernels import interp_cases as IC
+    d = json.loads(path.read_text())
+    case = IC.corpus_case(d["text"], d["tape"], events, 0, vec, cuda)
+    if case is None:
+        assert vec            # the program may not take the vec sub-lane
+        return
+    _interp_check(case, True)
+
+
+def test_interp_kernel_one_launch_per_probe_stage(cuda):
+    """One launch per probe stage while the lane is on and the tape is not
+    empty, whatever the table holds (an empty table too); none for an
+    empty tape."""
+    from repro_torch.core import jit as J
+    from repro_torch.kernels import interp_cases as IC
+    rt, links = IC.mixed_runtime()
+    for lk in links:
+        rt.detach(lk)
+    maps = rt.init_device_maps(cuda)
+    rows = torch.as_tensor(IC.mixed_tape(49, 0), device=cuda)
+    ops.reset_launch_counts()
+    out, _ = rt.probe_stage(rows, maps, J.make_aux(device=cuda))
+    assert ops.launch_counts()["table_interp"] == 1
+    rt.probe_stage(rows[:0], out, J.make_aux(device=cuda))
+    assert ops.launch_counts()["table_interp"] == 1
+    for name in out:
+        if name != "__live_table__":
+            for f in out[name]:
+                assert torch.equal(out[name][f], maps[name][f])
+
+
+# ------------------------------------------------------ flash attention# ------------------------------------------------------ flash attention
 
 def _flash_case(cuda, BH, BKH, S, hd, dtype, seed):
     g = torch.Generator(device=cuda).manual_seed(seed)

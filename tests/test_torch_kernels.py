@@ -127,20 +127,25 @@ def test_hash_plain_matches_ref_pallas_and_numpy(case):
 
 @pytest.mark.parametrize("batch", [5, 40])
 def test_ringbuf_plain_matches_ref_and_pallas(batch):
-    """B > cap (40 rows into 8 slots) and B < cap."""
+    """B > cap (40 rows into 8 slots) and B < cap. The plain version also
+    returns `dropped`; data and head against the JAX package's ref and
+    Pallas kernel (dropped is checked against its apply in
+    tests/test_torch_live.py)."""
     rng = np.random.default_rng(batch)
     data = rng.integers(-5, 5, (8, 4))
     head = np.array([11])
     rows = rng.integers(-(1 << 62), 1 << 62, (batch, 4))
     valid = rng.random(batch) < 0.7
     args_np = (data, head, rows, valid)
-    got = TREF.ringbuf_emit_batch(*[torch.as_tensor(a.copy())
-                                    for a in args_np])
+    got = TREF.ringbuf_emit_batch(*[torch.as_tensor(a.copy()) for a in (
+        data, head, np.array([2]), rows, valid)])
     jargs = [jnp.asarray(a) for a in args_np]
     for want in (JREF.ringbuf_emit_batch(*jargs),
                  JRB.ringbuf_emit_batch_pallas(*jargs, interpret=True)):
         np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
         np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    # head 11 is past cap 8: every valid row laps
+    assert int(got[2][0]) == 2 + int(valid.sum())
 
 
 def test_ops_dispatch_by_device():
@@ -151,12 +156,14 @@ def test_ops_dispatch_by_device():
     assert ops.launch_counts() == {"tensor_stats": 0,
                                    "hash_fetch_add_batch": 0,
                                    "ringbuf_emit_batch": 0,
+                                   "table_interp": 0,
                                    "flash_fwd": 0, "flash_bwd": 0}
     with pytest.raises(ValueError, match="meta"):
         ops.tensor_stats(torch.empty(4, device="meta"))
     for fn, args in ((TTS.tensor_stats_cuda, (x,)),
                      (TRB.ringbuf_emit_batch_cuda,
                       (torch.zeros(4, 2, dtype=torch.int64),
+                       torch.zeros(1, dtype=torch.int64),
                        torch.zeros(1, dtype=torch.int64),
                        torch.zeros(3, 2, dtype=torch.int64),
                        torch.ones(3, dtype=torch.bool))),
