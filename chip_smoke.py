@@ -9,9 +9,10 @@ Phases:
      with nvcc (one process per source, in parallel); print each bf16 flash
      kernel's registers, spill bytes and shared memory (ptxas -v) and its
      HGMMA (wgmma) instructions in `cuobjdump -sass` of the library, and
-     fail if one has no HGMMA; print the same ptxas numbers for every
-     tensor_stats, hash, ringbuf and interpreter kernel, beside the dynamic
-     shared memory each asks for;
+     fail if one has no HGMMA; print the same ptxas numbers and the stack
+     frame for every tensor_stats, hash, ringbuf and interpreter kernel,
+     beside the dynamic shared memory each asks for, and fail if the
+     interpreter has a stack frame;
   2. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and at stress shapes, and time both: the device
      time per launch (torch.profiler) beside the host's time per wrapper
@@ -19,10 +20,14 @@ Phases:
      Q47.16 lanes bit for bit `to_fx` of the kernel's stats); the hash
      kernel on its shared and its global route; the ring-buffer apply
      (data, head and the dropped lap count) from heads that lap; the table
-     interpreter on an eight-slot table of both sub-lanes at 49 and 4096
-     events (every helper, full HASH maps, fuel cut short) and on every
-     fuzz-corpus program on each sub-lane that takes it, against the plain
-     version on CPU copies; flash attention forward and backward also
+     interpreter on an eight-slot table of both sub-lanes at 49, 600 and
+     4096 events (every helper, full HASH maps, fuel cut short; at 49 and
+     4096 also its per-phase split from the kernel's clock64() stamps and
+     the instructions the plain version executed), on a branching HASH
+     program forced onto the vec sub-lane on the shared and the global
+     route, on the ISA traps and on every fuzz-corpus program on each
+     sub-lane that takes it, against the plain version on CPU copies;
+     flash attention forward and backward also
      against scaled_dot_product_attention's forward and its backward alone
      (the yardsticks, never called by the port), and the backward twice for
      bit-identity;
@@ -48,12 +53,16 @@ Phases:
      fourth attached with promote=True, served on the table, and promoted
      to the fused lane at the next sync under enable_promotion(...,
      background=False). Fails unless the decode step object is unchanged,
-     the interpreter launched once per probed step, and every probed
-     step's map states equal a replay through a runtime with the same
-     programs on the fused lane. Prints the attach-to-run latency, warm ms
-     per decode step with the three programs on the table lane, the fused
-     lane and not attached, and us per event on one decode tape for the
-     fused lane, the table lane and callback_probe's host round trip;
+     the interpreter launched once per probed step, every probed step's
+     map states equal a replay through a runtime with the same programs
+     on the fused lane and a replay through the table lane with the table
+     of the generation the step ran, and one probed decode step on a side
+     stream gives the default stream's tokens, tape and maps. Prints the
+     attach-to-run latency, warm ms per decode step with the three
+     programs on the table lane, the fused lane and not attached, us per
+     event on one decode tape for the fused lane, the table lane and
+     callback_probe's host round trip, and the interpreter alone with the
+     serving table on that tape (device us, host us, phase split);
   7. train qwen2-0.5b at full width through launch/train.run_training:
      seq 4096, global batch 4 in microbatches of 2, AdamW, remat, 3 steps,
      the TRAIN_PROBES set on the fused lane (layer counters, a gradient-norm
@@ -151,9 +160,9 @@ def _sm90_label(mangled: str):
 
 
 def ptxas_report(log: str, label=None) -> dict:
-    """{kernel: registers, spill bytes, shared memory} of the kernels that
-    `label` names (default: the bf16 flash kernels), from nvcc's
-    -Xptxas=-v output."""
+    """{kernel: registers, stack frame and spill bytes, shared memory} of
+    the kernels that `label` names (default: the bf16 flash kernels), from
+    nvcc's -Xptxas=-v output."""
     label = label or _sm90_label
     out, cur = {}, None
     for line in log.splitlines():
@@ -166,6 +175,9 @@ def ptxas_report(log: str, label=None) -> dict:
             continue
         if cur is None:
             continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            out[cur]["stack_frame"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -244,17 +256,20 @@ def _probe_label(mangled: str):
     return m.group(1) if m else None
 
 
-def probe_build_report(build, HU, cfg) -> dict:
-    """Phase 1's report on the probe kernels: ptxas registers, spills and
-    static shared memory, and the dynamic shared memory each launch asks
-    for (tensor_stats and ringbuf: none; hash: the shared route at the
-    path's map and batches; the interpreter: its packed table)."""
-    from repro_torch.core.table_interp import table_layout
+def probe_build_report(build, HU, TI, IC, cfg) -> dict:
+    """Phase 1's report on the probe kernels: ptxas registers, stack frame,
+    spills and static shared memory, and the dynamic shared memory each
+    launch asks for (tensor_stats and ringbuf: none; hash: the shared route
+    at the path's map and batches; the interpreter: its plan for the mixed
+    check table at 49 and 4096 events). Fails if the interpreter has a
+    stack frame."""
     out = {}
     for src in ("tensor_stats", "hash_update", "ringbuf_emit",
                 "table_interp"):
         out.update(ptxas_report(build.BUILD_LOG.get(src, ""), _probe_label))
     rows = 2 * cfg.num_layers + 1
+    key = IC.mixed_runtime()[0].live.spec_key
+    plans = {e: TI.plan(key, 8, 64, e, 16) for e in (49, 4096)}
     dyn = {"stats_kernel": "0",
            "hash_shared": "; ".join(
                f"{24 * 256 + HU.batch_bytes(b)} B at n 256, B {b}"
@@ -263,17 +278,22 @@ def probe_build_report(build, HU, cfg) -> dict:
                           f"{rows}, when it fits, else 0 (scratch)",
            "ringbuf_emit": "0",
            "table_interp": "; ".join(
-               f"{8 * table_layout(p, 64)[1]} B, the packed table of {p} x "
-               "64 rows" for p in (4, 8))}
+               f"{pl['smem_bytes']} B at 8 x 64 rows, {e} events (maps "
+               f"{pl['maps']}, tape {pl['tape']})"
+               for e, pl in plans.items())}
     if len(out) != 8:
         fail(f"phase 1: expected 4 tensor_stats, 2 hash, 1 ringbuf and 1 "
              f"interpreter kernels, found {sorted(out)}")
     for name, r in sorted(out.items()):
         r["dynamic_smem"] = next(v for k, v in dyn.items() if k in name)
-        print(f"  {name}: {r.get('registers')} registers, spill stores "
+        print(f"  {name}: {r.get('registers')} registers, stack frame "
+              f"{r.get('stack_frame')} B, spill stores "
               f"{r.get('spill_stores')} B, loads {r.get('spill_loads')} B, "
               f"static shared memory {r.get('static_smem')} B, dynamic "
               f"{r['dynamic_smem']}", flush=True)
+    if out["table_interp"].get("stack_frame") != 0:
+        fail(f"phase 1: the interpreter has a stack frame of "
+             f"{out['table_interp'].get('stack_frame')} B")
     return out
 
 
@@ -601,13 +621,22 @@ def _interp_bytes(case) -> int:
 
 def check_interp(torch, ops, IC, corpus):
     """The interpreter kernel against its plain version (on CPU copies of
-    the same inputs) on the mixed table and the ISA-traps program at 49 and
-    4096 events and on every corpus program on each sub-lane that may take
-    it: maps, aux and r0 bit for bit. Times the mixed table: device us per launch, host us per
-    call; the plain version's ms is host time on the CPU (it steps its
-    loops from the host)."""
+    the same inputs) on the mixed table at 49, 600 and 4096 events, the
+    branching-HASH table on the shared and the global route at 49 and 1029,
+    the ISA-traps program at 49 and 4096 and every corpus program on each
+    sub-lane that may take it: maps, aux and r0 bit for bit. Times the
+    mixed table at 49 and 4096: device us per launch (CUDA events), host
+    us per call, the per-phase split of one launch from its clock64()
+    stamps, and the instructions the plain version executed; the plain
+    version's ms is host time on the CPU (it steps its loops from the
+    host)."""
+    from repro_torch.core import table_interp as CT
+    from repro_torch.kernels import table_interp as TI
     cases = [(f"mixed {n}", IC.mixed_case(n, SEED + n, "cuda"), False)
-             for n in (49, 4096)]
+             for n in (49, 600, 4096)]
+    cases += [(f"branch {'global' if big else 'shared'} {n}",
+               IC.branch_case(n, SEED + n, "cuda", big), False)
+              for big in (False, True) for n in (49, 1029)]
     cases += [(f"isa traps {n}", IC.traps_case(n, SEED + n, "cuda"), True)
               for n in (49, 4096)]
     for name, d in corpus:
@@ -618,43 +647,77 @@ def check_interp(torch, ops, IC, corpus):
                 if c is not None:
                     cases.append((f"{name} {'vec' if vec else 'seq'} {n}",
                                   c, True))
-    rows = []
+    khz = TI.clock_khz()
+    rows, routes = [], {}
     for label, case, match_all in cases:
+        P, N = case[1]["hcls"].shape
+        E, cw = case[2].shape
+        pl = TI.plan(case[0], P, N, E, cw)
+        routes[label] = f"maps {pl['maps']}, tape {pl['tape']}"
         got = ops.table_interp_run(*case, match_all=match_all, want_r0=True)
         torch.cuda.synchronize()
         cpu = IC.to_cpu(case)
+        counts = dict(CT.COUNTS)
         t0 = time.perf_counter()
         want = ops.table_interp_run(*cpu, match_all=match_all, want_r0=True)
         plain_ms = (time.perf_counter() - t0) * 1e3
+        executed = {k: CT.COUNTS[k] - v for k, v in counts.items()}
         bad = IC.compare(IC.to_cpu(got), want)
         if bad:
             fail(f"interpreter {label}: {bad} differ from the plain version")
-        if not label.startswith("mixed"):
+        if label not in ("mixed 49", "mixed 4096"):
             continue
+        if pl["maps"] != "shared":
+            fail(f"interpreter {label}: the mixed table took the "
+                 f"{pl['maps']} route")
         # CUDA events around back-to-back calls: the launches are long
-        # (up to tens of ms), so the gaps between them do not count
-        n = case[2].shape[0]
-        reps = 20 if n < 1000 else 5
+        # (tens of us and more), so the gaps between them do not count
+        reps = 20 if E < 1000 else 5
 
         def fn():
             return ops.table_interp_run(*case)
         base = ops.launch_counts()["table_interp"]
-        r = {"case": label, "events": n, "ms": cuda_ms(torch, fn, reps),
+        r = {"case": label, "events": E, "ms": cuda_ms(torch, fn, reps),
              "host_us": host_us(torch, fn, reps)}
         r["launches_per_call"] = (ops.launch_counts()["table_interp"]
                                   - base) / (2 + reps + 1 + reps)
         r["plain_ms"] = plain_ms
         r["plain_on"] = "host CPU"
         r["bound_ms"], r["bound_by"] = bound_ms(_interp_bytes(case), 0.0)
+        fn()
+        torch.cuda.synchronize()
+        vec = [p for p in range(P) if case[1]["active"][p]
+               and case[1]["vec"][p]]
+        r["phases_us"] = TI.phase_split(TI.LAST_STAMPS.cpu(), khz, vec)
+        r["clock_khz"] = khz
+        r["plan"] = routes[label]
+        r["executed"] = executed
+        r["seq_ns_per_insn"] = r["phases_us"]["seq"] * 1e3 / max(
+            executed["seq_insns"], 1)
         rows.append(r)
-        print(f"  interpreter {label} events: device {r['ms'] * 1e3:.2f} us a "
-              f"call back to back (CUDA events; "
+        ph = r["phases_us"]
+        print(f"  interpreter {label} events ({r['plan']}): device "
+              f"{r['ms'] * 1e3:.2f} us a call back to back (CUDA events; "
               f"{r['launches_per_call']:.0f} launch a call), host "
               f"{r['host_us']:.1f} us a call, plain {plain_ms:.1f} ms on "
               f"the host CPU, bound {r['bound_ms'] * 1e3:.4f} us "
               f"({r['bound_by']}), bit-identical", flush=True)
+        print(f"    one launch by its stamps at {khz} kHz: copy-in "
+              f"{ph['copy_in']:.2f} us, sequential {ph['seq']:.2f} us "
+              f"({executed['seq_insns']} instructions, "
+              f"{r['seq_ns_per_insn']:.1f} ns each), vec {ph['vec']:.2f} "
+              f"us ({executed['vec_lane_insns']} lane instructions in "
+              f"{executed['vec_machine_steps']} machine steps; per slot "
+              + ", ".join(f"{p}: {v:.2f}"
+                          for p, v in ph["per_vec_slot"].items())
+              + f"), of which HASH apply {ph['hash_apply']:.2f} us in "
+              f"{ph['hash_rounds']} rounds, copy-out {ph['copy_out']:.2f} "
+              f"us; total {ph['total']:.2f} us", flush=True)
     print(f"  interpreter: {len(cases)} cases bit-identical to the plain "
-          f"version ({', '.join(lbl for lbl, *_ in cases)})", flush=True)
+          f"version ({'; '.join(f'{k}: {v}' for k, v in routes.items())})",
+          flush=True)
+    if not any("global" in v for v in routes.values()):
+        fail("interpreter: no case took the global route")
     return rows
 
 
@@ -1096,7 +1159,7 @@ def live_serve(torch, ops, cfg, params):
         out = stage(rows, maps, aux, mode=mode)
         steps.append((part[0], rows, {k: v for k, v in maps.items()
                                       if k != "__live_table__"}, aux,
-                      out[0]))
+                      out[0], rt.table_generation))
         if "attach" in mark and "first_run" not in mark:
             torch.cuda.synchronize()
             mark["first_run"] = time.perf_counter()
@@ -1176,7 +1239,7 @@ def live_serve(torch, ops, cfg, params):
                    ("attach", "lv_hist")],
                3: [("detach", "lv_hist"), ("attach", "lv_hash")]}
     flinks, cur = {}, 1
-    for k, rows, maps_in, aux, out in steps:
+    for k, rows, maps_in, aux, out, _ in steps:
         while cur < k:
             cur += 1
             for op, name in changes.get(cur, []):
@@ -1190,6 +1253,28 @@ def live_serve(torch, ops, cfg, params):
         if bad:
             fail(f"live lane: part {k}: {bad} differ from the fused-lane "
                  "replay")
+    # and through the table lane, each with the table of the generation it
+    # ran: a sync writes the running step's table buffer in place, so the
+    # state a step started from holds the newest table by now
+    rr, rp = _live_runtime("table")
+    if rr.live.spec_key != rt.live.spec_key:
+        fail("live lane: the replay runtime's map universe differs")
+    hash_target = next(t for n, _, _, t in L.LIVE_PROBES if n == "lv_hash")
+    promoted = False
+    for k, rows, maps_in, aux, out, gen in steps:
+        if k == 4 and not promoted:
+            rr.attach(rp["lv_hash"], hash_target, mode="fused")
+            promoted = True
+        want, _ = rr.probe_stage(rows, {**maps_in, "__live_table__":
+                                        rt.live_table_at(gen, "cuda")}, aux)
+        bad = _same_maps(out, want)
+        if bad:
+            fail(f"live lane: part {k}: {bad} differ from the table-lane "
+                 f"replay of generation {gen}")
+    gens = sorted({s[5] for s in steps})
+    print(f"  {len(steps)} probed steps bit-identical to a table-lane replay "
+          f"from the generation each ran (generations {gens})", flush=True)
+    side = side_stream_step(torch, ops, engine, decode)
     final = {m: {f: int(t.sum()) for f, t in st.items()}
              for m, st in engine.maps.items()
              if m.startswith("lv_") and m != "lv_logits_rb"}
@@ -1209,7 +1294,50 @@ def live_serve(torch, ops, cfg, params):
             "attach_sync_ms": attach_ms,
             "attach_to_first_run_ms": to_run_ms,
             "prefills_in_between_ms": prefill_ms,
-            "launches": launches, "steps": steps}
+            "launches": launches, "table_generations": gens,
+            "side_stream": side, "steps": steps}
+
+
+def side_stream_step(torch, ops, engine, decode):
+    """One probed decode step of `engine` on the default stream and the
+    same step on a side stream: the probe kernels keep their scratch per
+    stream, so both run, and the tokens, the event tape and the maps must
+    be bit-identical."""
+    toks = torch.ones((engine.slots, 1), dtype=torch.int64, device="cuda")
+
+    def one():
+        nxt, logits, _, maps = decode(engine.params, toks, engine.cache,
+                                      engine.maps, engine.step_count)
+        return nxt, logits, decode.last[0].clone(), maps
+
+    torch.cuda.synchronize()
+    a = one()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    before = ops.launch_counts()
+    with torch.cuda.stream(side):
+        b = one()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    if any(ran[k] == 0 for k in ("tensor_stats", "hash_fetch_add_batch",
+                                 "table_interp")):
+        fail(f"side stream: a probe kernel did not run: {ran}")
+    if not torch.equal(a[0], b[0]) or not torch.equal(a[2], b[2]):
+        fail("side stream: the decode step's tokens or tape differ from "
+             "the default stream's")
+    bad = _same_maps(b[3], a[3])
+    if bad:
+        fail(f"side stream: {bad} differ from the default stream's")
+    out = {"launches": ran, "logits_bit_identical": torch.equal(a[1], b[1]),
+           "events": int(a[2].shape[0])}
+    print(f"  one probed decode step on a side stream: tokens, the "
+          f"{out['events']}-event tape and the maps bit-identical to the "
+          f"default stream's (logits bit-identical: "
+          f"{out['logits_bit_identical']}); kernels {json.dumps(ran)}",
+          flush=True)
+    return out
 
 
 def live_timing(torch, cfg, params, tape):
@@ -1257,6 +1385,7 @@ def live_timing(torch, cfg, params, tape):
         rt_f.attach(pids_f[name], target, mode="fused")
     maps_f = rt_f.init_device_maps("cuda")
     step = int(rows[0, 3])
+    interp = serving_interp(torch, rt_t, maps_t, rows, aux)
     for label, fn, reps in (
             ("fused", lambda: rt_f.probe_stage(rows, maps_f, aux), 50),
             ("table", lambda: rt_t.probe_stage(rows, maps_t, aux), 50),
@@ -1274,7 +1403,41 @@ def live_timing(torch, cfg, params, tape):
                                          for k, v in per_event.items()),
           flush=True)
     return {"warm_ms_per_step": runs, "us_per_event": per_event,
-            "tape_events": n}
+            "tape_events": n, "serving_table_interp": interp}
+
+
+def serving_interp(torch, rt, maps, rows, aux):
+    """The interpreter kernel alone with the serving table (three
+    LIVE_PROBES on the live table) on a real decode tape: device us per
+    launch (CUDA events around calls queued behind a sleep: the launch is
+    shorter than the host's enqueue), host us per call and one launch's
+    phases."""
+    from repro_torch.kernels import ops, table_interp as TI
+    key, table = rt.live.spec_key, maps["__live_table__"]
+    known = {k: maps[k] for k, *_ in key}
+
+    def fn():
+        return ops.table_interp_run(key, table, rows, known, aux)
+    r = {"events": int(rows.shape[0]), "ms": queued_ms(torch, fn, 100),
+         "host_us": host_us(torch, fn, 200)}
+    fn()
+    torch.cuda.synchronize()
+    P, N = table["hcls"].shape
+    vec = [p for p in range(P) if table["active"][p] and table["vec"][p]]
+    r["phases_us"] = ph = TI.phase_split(TI.LAST_STAMPS.cpu(),
+                                         TI.clock_khz(), vec)
+    pl = TI.plan(key, P, N, *rows.shape)
+    r["plan"] = f"maps {pl['maps']}, tape {pl['tape']}"
+    r["bound_ms"], r["bound_by"] = bound_ms(
+        _interp_bytes((key, table, rows, known, aux)), 0.0)
+    print(f"  interpreter with the serving table on the {r['events']}-event "
+          f"decode tape ({r['plan']}): device {r['ms'] * 1e3:.2f} us a call "
+          f"(CUDA events, queued), host {r['host_us']:.1f} us a call; "
+          f"one launch: copy-in {ph['copy_in']:.2f}, sequential "
+          f"{ph['seq']:.2f}, vec {ph['vec']:.2f} (HASH apply "
+          f"{ph['hash_apply']:.2f}), copy-out {ph['copy_out']:.2f}, total "
+          f"{ph['total']:.2f} us", flush=True)
+    return r
 
 
 # --------------------------------------------------------------------------
@@ -1525,7 +1688,7 @@ def main(argv=None):
     from repro_torch.kernels import (build, flash_attention as FA,
                                      hash_update as HU, interp_cases as IC,
                                      ops, ref, ringbuf_emit as RB,
-                                     tensor_stats as TS)
+                                     table_interp as TI, tensor_stats as TS)
 
     name = torch.cuda.get_device_name(0)
     print(f"device: {name}, torch {torch.__version__}, CUDA "
@@ -1541,7 +1704,7 @@ def main(argv=None):
             if "error" in line.lower() or "warning" in line.lower():
                 print(f"  {lib_name}: {line.strip()}")
     sm90_build = check_build(build)
-    probe_build = probe_build_report(build, HU, cfg)
+    probe_build = probe_build_report(build, HU, TI, IC, cfg)
 
     # ---- phase 2
     L2 = 2 * cfg.num_layers + 1            # rows per probed decode step
@@ -1691,7 +1854,7 @@ def main(argv=None):
           "three programs hot-attached to the running decode step, one "
           "detached, one promoted", flush=True)
     live = live_serve(torch, ops, cfg, engine.params)
-    tape = next((rows, aux) for k, rows, _, aux, _ in live.pop("steps")
+    tape = next((rows, aux) for k, rows, _, aux, *_ in live.pop("steps")
                 if k == 2)
     live.update(live_timing(torch, cfg, engine.params, tape))
     del engine, x, tape

@@ -50,6 +50,9 @@ _AUX_RESOURCES = {"trace_printk": "printk", "override_return": "override",
 # observability: how often the footprint proofs fired
 WIDEN_STATS = {"fused_disjoint_pairs": 0}
 
+# live-table generations whose host snapshot a runtime keeps (live_table_at)
+TABLE_SNAPSHOTS = 64
+
 _LATER = {
     "cache": "the artifact cache comes with the fleet slice (ROADMAP A11)",
     "shm": "the shm control plane comes with the fleet slice (ROADMAP A11)",
@@ -165,7 +168,10 @@ class BpftimeRuntime:
         self._armed: set[tuple[int, int]] = set()
         self._live_slot_of: dict[int, int] = {}   # link_id -> table slot
         self._synced_gen = 0                      # last gen pushed to device
-        self._table_staging = None   # host snapshot of the last table push
+        # host snapshots of the last TABLE_SNAPSHOTS tables written to a
+        # device state, by generation, and the generation written last
+        self._table_snapshots: dict[int, torch.Tensor] = {}
+        self._table_gen = None
         # background promotion (enable_promotion / core/promote.py)
         self._promoter = None
         self._promoted_step = None    # step built by a promotion, for pickup
@@ -194,8 +200,36 @@ class BpftimeRuntime:
         the live table (`__live_table__`) when the live lane is on."""
         st = M.init_states(self.map_specs, device)
         if self.live is not None:
-            st["__live_table__"] = self.live.device_state(device)
+            host = torch.from_numpy(self.live.packed())
+            st["__live_table__"] = self.live.views(host.to(device, copy=True))
+            self._record_table(host)
         return st
+
+    def _record_table(self, host) -> None:
+        gen = int(host[-1])
+        self._table_snapshots.pop(gen, None)
+        self._table_snapshots[gen] = host
+        self._table_gen = gen
+        while len(self._table_snapshots) > TABLE_SNAPSHOTS:
+            del self._table_snapshots[next(iter(self._table_snapshots))]
+
+    @property
+    def table_generation(self):
+        """The generation of the live table this runtime last wrote to a
+        device state (`init_device_maps` or `sync_live_table`): the one the
+        next probe stage runs. None without the live lane."""
+        return self._table_gen
+
+    def live_table_at(self, gen: int, device) -> dict:
+        """The live table of generation `gen` as it was written, as a new
+        device state on `device` -- what a replay of a step that ran it
+        takes, since a sync writes the step's own buffer in place. The last
+        TABLE_SNAPSHOTS generations are kept."""
+        if gen not in self._table_snapshots:
+            raise KeyError(f"live table generation {gen} is no longer kept "
+                           f"(the last {TABLE_SNAPSHOTS} are)")
+        return self.live.views(self._table_snapshots[gen].to(device,
+                                                            copy=True))
 
     # ---------------------------------------------------------------- load
     def load_object(self, obj: ProgramObject) -> int:
@@ -354,7 +388,9 @@ class BpftimeRuntime:
         current stream). Generation-gated: an idle call (no attach/detach
         since the last sync) returns at once, so a loop can call it every
         step. Promotions that are ready swap in first (a generation
-        boundary is a promotion boundary)."""
+        boundary is a promotion boundary). Unlike JAX, which returns a new
+        dict, this returns `map_states` itself with its table written; the
+        snapshot of each generation pushed is kept for `live_table_at`."""
         if self.live is None or "__live_table__" not in map_states:
             return map_states
         if self._promoter is not None:
@@ -372,7 +408,7 @@ class BpftimeRuntime:
             dst.copy_(host, non_blocking=True)
         else:
             dst.copy_(host)
-        self._table_staging = host
+        self._record_table(host)
         return map_states
 
     # ---------------------------------------------------------------- attach

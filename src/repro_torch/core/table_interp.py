@@ -98,6 +98,11 @@ def table_layout(max_programs: int, max_insns: int):
 
 _U64 = U.U64_FULL
 
+# instructions the plain version has executed: sequential steps, vec lane
+# steps and vec machine steps (the interpreter kernel's per-instruction
+# times are read against these)
+COUNTS = {"seq_insns": 0, "vec_lane_insns": 0, "vec_machine_steps": 0}
+
 
 def _s32(x: int) -> int:
     lo = x & _MASK32
@@ -305,7 +310,7 @@ def _seq_core(specs, prog: dict, fuel: int, ctx_row: list, ms, aux):
             return 0
         raise AssertionError(name)
 
-    pc, done = 0, False
+    pc, done, steps = 0, False, 0
     while not done and fuel > 0:
         i = min(max(pc, 0), n_pad - 1)
         hcls = min(max(prog["hcls"][i], 0), TH_EXIT)
@@ -341,6 +346,8 @@ def _seq_core(specs, prog: dict, fuel: int, ctx_row: list, ms, aux):
         pc = prog["tgt"][i] if taken else pc + 1
         fuel -= 1
         done = hcls == TH_EXIT
+        steps += 1
+    COUNTS["seq_insns"] += steps
     return regs[0], ms, aux
 
 
@@ -584,8 +591,11 @@ def _batched_core(specs, prog: dict, fuel, ctx_rows, ms, aux, preds):
     done = ~preds
     while True:
         live = (~done) & (fuel > 0)
-        if not bool(live.any()):
+        n_live = int(live.sum())
+        if not n_live:
             break
+        COUNTS["vec_machine_steps"] += 1
+        COUNTS["vec_lane_insns"] += n_live
         i = pc.clamp(0, n_pad - 1)
         g = {f: prog[f][i] for f in TABLE_FIELDS}     # [B] field gathers
         hcls = g["hcls"]

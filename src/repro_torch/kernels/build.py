@@ -125,32 +125,28 @@ def device_guard(device):
     return torch.cuda.device(device)
 
 
-_SCRATCH: dict = {}           # (name, device index) -> (buffer, stream)
+_SCRATCH: dict = {}     # (name, device index, stream handle) -> buffer
 
 
 def device_scratch(name: str, device, nbytes: int):
     """(buffer, stream): a zeroed u8 buffer of `nbytes` that kernel `name`
-    keeps on `device` for the life of the process (ticket counters a launch
-    leaves at 0, per-block partials), made on the first call, and the
-    current stream's handle. The kernels that use one assume one stream at
-    a time per device: a call from another stream than the buffer was made
-    on raises."""
+    keeps on `device` for the current stream, for the life of the process
+    (ticket counters a launch leaves at 0, per-block partials), made on
+    the first call from that stream, and the stream's handle. Each stream
+    has its own buffer, so launches on different streams never share one,
+    and later launches on one stream reuse it."""
     import torch
     dev = torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     stream = stream_ptr(dev)
-    entry = _SCRATCH.get((name, index))
-    if entry is None:
-        entry = (torch.zeros(nbytes, dtype=torch.uint8, device=dev), stream)
-        _SCRATCH[(name, index)] = entry
-    elif entry[1] != stream:
-        raise RuntimeError(f"{name}: its per-device scratch was made for "
-                           "another stream; the kernel takes one stream at a "
-                           "time per device")
-    if entry[0].numel() < nbytes:
-        raise RuntimeError(f"{name}: scratch of {entry[0].numel()} bytes, "
+    buf = _SCRATCH.get((name, index, stream))
+    if buf is None:
+        buf = torch.zeros(nbytes, dtype=torch.uint8, device=dev)
+        _SCRATCH[(name, index, stream)] = buf
+    if buf.numel() < nbytes:
+        raise RuntimeError(f"{name}: scratch of {buf.numel()} bytes, "
                            f"{nbytes} asked")
-    return entry[0], stream
+    return buf, stream
 
 
 def require(t, what: str, dtype, ndim: int, device=None) -> None:

@@ -21,10 +21,10 @@ Routes, picked from n and B alone (`plan`): "shared" keeps the three
 tables and the batch table in one block's shared memory -- one launch, no
 copy or memset -- whenever they fit in SMEM_MAX bytes; "global" leaves
 larger tables in device memory (one launch: a grid copies them and counts
-their free slots, the block that draws the last ticket of a per-device
-counter applies the batch),
-with the batch table in shared memory when it fits, else in one scratch
-tensor.
+their free slots, the block that draws the last ticket of a counter kept
+per device and stream applies the batch), with the batch table in shared
+memory when it fits, else in one scratch tensor. The counter is
+`build.device_scratch`, one per stream, so any stream may call.
 """
 from __future__ import annotations
 

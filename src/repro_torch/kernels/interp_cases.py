@@ -12,6 +12,11 @@ aux and r0 bit for bit. Every case is made from a seed with numpy.
     fetch-add, prandom, printk, override, ktime, pid, cpu, log2; a loop
     forced onto the sequential sub-lane), the loops' fuel cut so some
     events exhaust it;
+  * `branch_case`: a HASH fetch-add behind a data-dependent loop forced
+    onto the vec sub-lane (lanes reach HASH at different machine steps),
+    beside a sequential program and a vec ARRAY counter; with `big`, the
+    counter's map takes the universe past the kernel's shared memory (the
+    global route);
   * `corpus_case`: one fuzz-corpus program in a one-slot table on the
     sequential or the vec sub-lane, every event taken (match_all), over a
     tape that repeats the corpus rows and adds random ones.
@@ -152,6 +157,48 @@ MIXED = [
 ]
 MISC_MAPS = [("ic_small", "hash", 8, 4, 1), ("ic_pcpu", "percpu_array", 8,
                                              4, 2)]
+# a HASH fetch-add behind a loop whose trip count is the layer's low bits,
+# then a second one on odd layers only: forced onto the vec sub-lane, the
+# lanes reach their HASH calls at different machine steps, and the 16-slot
+# map fills, so the insert order is visible in its layout
+_BRANCH_HASH = """
+    ldxdw r6, [r1+ctx:layer]
+    ldxdw r8, [r1+ctx:step]
+    mov r7, r6
+    and r7, 7
+    loop:
+    sub r7, 1
+    jsgt r7, 0, loop
+    stxdw [r10-8], r6
+    lddw r1, map:ic_bh
+    mov r2, r10
+    add r2, -8
+    mov r3, 1
+    call map_fetch_add
+    jset r6, 1, skip
+    add r8, 1000
+    stxdw [r10-8], r8
+    lddw r1, map:ic_bh
+    mov r2, r10
+    add r2, -8
+    mov r3, r6
+    call map_fetch_add
+    skip:
+    mov r0, 0
+    exit
+"""
+# the branching HASH program forced onto the vec sub-lane, beside a
+# sequential program and a vec ARRAY counter (MIXED's format)
+BRANCH = [
+    ("ic_misc", _MISC, None, "uprobe:ic_block", None, None),
+    ("ic_bcount", _COUNT.format(map="ic_barr"),
+     ("ic_barr", "array", 64, 4, 1), "uretprobe:ic_block", None, None),
+    ("ic_bhash", _BRANCH_HASH, ("ic_bh", "hash", 16, 4, 1),
+     "uprobe:ic_block", 1, None),
+]
+# entries of BRANCH's ARRAY map that put its universe (256 KiB) past the
+# interpreter kernel's shared memory: the global route
+BIG_ENTRIES = 32768
 AUX = dict(time_ns=123456789, cpu=1, pid=4242, rand=0x12345678)
 
 
@@ -162,21 +209,23 @@ def _spec(t):
                    num_shards=shards)
 
 
-def mixed_runtime():
-    """A runtime with the MIXED programs on its live table (eight slots);
-    returns (runtime, links)."""
+def _runtime(programs, max_programs: int):
+    """A runtime with `programs` (MIXED's format) on its live table; returns
+    (runtime, links). A forced vec flag or fuel is written after the slot's
+    attach, so a forced program comes last (a later attach recomputes the
+    flags)."""
     from ..core.runtime import BpftimeRuntime
     rt = BpftimeRuntime()
-    for _, _, spec, *_ in MIXED:
+    for _, _, spec, *_ in programs:
         if spec is not None:
             rt.create_map(_spec(spec))
     for spec in MISC_MAPS:
         rt.create_map(_spec(spec))
-    rt.enable_live_attach(max_programs=8, max_insns=64,
+    rt.enable_live_attach(max_programs=max_programs, max_insns=64,
                           arm=("uprobe:ic_block", "uretprobe:ic_block",
                                "probe:ic_logits"))
     links = []
-    for name, text, spec, target, vec, fuel in MIXED:
+    for name, text, spec, target, vec, fuel in programs:
         maps = MISC_MAPS if spec is None else [spec]
         pid = rt.load_asm(name, text, [_spec(m) for m in maps], "uprobe")
         lk = rt.attach(pid, target, mode="table", promote=False)
@@ -186,6 +235,26 @@ def mixed_runtime():
             rt.live.host["fuel"][lk.slot] = fuel
         links.append(lk)
     return rt, links
+
+
+def mixed_runtime():
+    """A runtime with the MIXED programs on its live table (eight slots);
+    returns (runtime, links)."""
+    return _runtime(MIXED, 8)
+
+
+def branch_programs(big: bool = False):
+    """BRANCH, with the vec counter's ARRAY map at BIG_ENTRIES when `big`."""
+    if not big:
+        return BRANCH
+    return [(n, t, (s[0], s[1], BIG_ENTRIES, *s[3:])
+             if s is not None and s[0] == "ic_barr" else s, tg, v, f)
+            for n, t, s, tg, v, f in BRANCH]
+
+
+def branch_runtime(big: bool = False):
+    """A runtime with the BRANCH programs on a live table of four slots."""
+    return _runtime(branch_programs(big), 4)
 
 
 def mixed_tape(n: int, seed: int):
@@ -207,16 +276,26 @@ def mixed_tape(n: int, seed: int):
     return rows
 
 
-def mixed_case(n: int, seed: int, device):
-    """(spec_key, table, rows, maps, aux) of the MIXED table over an
-    n-event tape, on `device`."""
+def _case(rt, n: int, seed: int, device):
     from ..core import jit as J
-    rt, _ = mixed_runtime()
     st = rt.init_device_maps(device)
     table = st.pop("__live_table__")
     rows = torch.as_tensor(mixed_tape(n, seed), device=device)
     return rt.live.spec_key, table, rows, st, J.make_aux(device=device,
                                                          **AUX)
+
+
+def mixed_case(n: int, seed: int, device):
+    """(spec_key, table, rows, maps, aux) of the MIXED table over an
+    n-event tape, on `device`."""
+    return _case(mixed_runtime()[0], n, seed, device)
+
+
+def branch_case(n: int, seed: int, device, big: bool = False):
+    """(spec_key, table, rows, maps, aux) of the BRANCH table over an
+    n-event tape (`mixed_tape`), on `device`; `big` puts the universe past
+    the kernel's shared-memory budget (its global route)."""
+    return _case(branch_runtime(big)[0], n, seed, device)
 
 
 # The ISA's traps in one sequential program, every result recorded in a

@@ -7,15 +7,27 @@ inside the compiled step (`src/repro/core/table_interp.py`, `_build_core`
 `core.table_interp.run_plain`, which the CPU takes.
 
 Bound on an H100: latency -- the table, the tape and the maps are
-kilobytes; the time is the instruction walk. Design (right and simple
-first): one block. The packed table sits in shared memory; thread 0 walks
-the sequential slots over the tape with the 512-byte frame in shared
-memory; the vec slots run the lockstep machine with the lanes spread over
-the block, exact 64-bit atomics for the commutative adds and thread 0
-applying each machine step's HASH fetch-adds in lane order. The kernel
-copies every map state and the aux block into outputs this wrapper
-allocates, so the inputs (the state a step started from) are never
-written. Launch arguments depend on the table's shape, never its contents.
+kilobytes; the time is the instruction walk. Design: one block. Copy-in
+decodes the packed table into one 32-byte record per instruction in shared
+memory; thread 0 walks the sequential slots over the tape with its register
+file and frame in shared memory; each vec lane runs free on a thread, with
+exact 64-bit atomics for the commutative adds, and pauses only at a HASH
+fetch-add, which warp 0 applies in (machine step, lane) order, one barrier
+round per distinct step. The kernel writes every map state and the aux
+block to outputs this wrapper allocates, so the inputs (the state a step
+started from) are never written.
+
+Routes (`layout`, from the map universe and the table's and the tape's
+shapes, never the table's contents): the map states sit in shared memory
+during the launch when they fit beside the records and the lanes
+("shared"), else in device memory ("global"); the tape sits in shared
+memory when it fits after them ("shared"), else the sequential walk stages
+its rows ahead through a ring ("ring").
+
+Every launch leaves `clock64()` stamps (`LAST_STAMPS`, i64[P + 6]): start,
+copy-in, the sequential sub-lane, the end of each slot's vec lanes,
+copy-out, the cycles spent applying HASH requests and the number of HASH
+rounds; `phase_split` turns them into microseconds at `clock_khz()`.
 """
 from __future__ import annotations
 
@@ -28,9 +40,15 @@ import torch
 from . import build
 
 LAUNCHES = 0
+LAST_STAMPS = None            # the last launch's stamps (a device tensor)
 MAX_MAPS = 24
 LANE_WORDS = 32
 AUX_WORDS = 23
+THREADS = 512                 # kThreads
+VEC_WORDS = 19                # a running vec lane's registers and stack
+RING_ROWS = 8                 # kRing
+REC_WORDS = 4                 # a decoded instruction record
+SEQ_WORDS = 80                # the sequential sub-lane's registers, frame
 SMEM_MAX = 227 * 1024 - 4096       # the block's shared memory, less static
 # map kind -> the kernel's code and its state fields, in the kernel's order
 KINDS = {"array": (0, ("values",)), "hash": (1, ("keys", "used", "values")),
@@ -41,13 +59,15 @@ AUX_IN = ("time_ns", "cpu", "pid", "rand", "override_set", "override_val",
 
 _p = ctypes.c_void_p
 # the kernel's Params as i64 words: table, rows, aux_in[8], aux_out, r0,
-# lanes, P, N, E, ctx_words, nmaps, match_all; then per map: kind, n,
-# width, shards, len[3], in[3], out[3]
-HEAD_WORDS = 19
+# lanes, stamps, P, N, E, ctx_words, nmaps, match_all, maps_shared,
+# tape_shared, sm_meta, sm_slots, sm_lanes, lane_stride, sm_maps, sm_tape;
+# then per map: kind, n, width, shards, len[3], in[3], out[3]
+HEAD_WORDS = 28
 DESC_WORDS = 13
 PARAMS_WORDS = HEAD_WORDS + DESC_WORDS * MAX_MAPS
-(W_TABLE, W_ROWS, W_AUX_IN, W_AUX_OUT, W_R0, W_LANES, W_P, W_N, W_E, W_CW,
- W_NMAPS, W_MATCH_ALL) = (0, 1, 2, 10, 11, 12, 13, 14, 15, 16, 17, 18)
+(W_TABLE, W_ROWS, W_AUX_IN, W_AUX_OUT, W_R0, W_LANES, W_STAMPS, W_P, W_N,
+ W_E, W_CW, W_NMAPS, W_MATCH_ALL, W_MAPS_SHARED, W_TAPE_SHARED,
+ W_SM_META) = (0, 1, 2, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22)
 
 
 _FN = None
@@ -57,10 +77,11 @@ def _fn():
     global _FN
     if _FN is None:
         sizes = build.function("table_interp", "repro_table_interp_sizes",
-                               [_p, _p, _p, _p])
-        vals = [ctypes.c_int() for _ in range(4)]
+                               [_p] * 9)
+        vals = [ctypes.c_int() for _ in range(9)]
         sizes(*[ctypes.byref(v) for v in vals])
-        want = (8 * PARAMS_WORDS, MAX_MAPS, LANE_WORDS, AUX_WORDS)
+        want = (8 * PARAMS_WORDS, MAX_MAPS, LANE_WORDS, AUX_WORDS, THREADS,
+                VEC_WORDS, RING_ROWS, REC_WORDS, SEQ_WORDS)
         if tuple(v.value for v in vals) != want:
             raise RuntimeError("table_interp: the kernel's parameter layout "
                                f"{[v.value for v in vals]} differs from the "
@@ -122,15 +143,80 @@ def _plan(spec_key):
             np.array(offsets, np.int64), off)
 
 
+@functools.lru_cache(maxsize=64)
+def layout(map_words: int, P: int, N: int, E: int, cw: int) -> dict:
+    """The launch's dynamic shared memory, in words: the sequential
+    sub-lane's registers and frame, the records, meta, the sequential slot
+    list, the running vec lanes (one column per thread that has a lane),
+    the map states on the shared route, and the tape or the walk's ring;
+    with the routes and the bytes asked for. It
+    depends on the map universe's size and the table's and the tape's
+    shapes only. Raises when the records and the lanes alone do not fit."""
+    stride = min(E, THREADS)
+    sm_meta = SEQ_WORDS + REC_WORDS * P * N
+    sm_slots = sm_meta + 6 * P
+    sm_lanes = sm_slots + 4 * P
+    end = sm_lanes + VEC_WORDS * stride
+    ring = RING_ROWS * cw
+    if 8 * (end + ring) > SMEM_MAX:
+        raise ValueError(f"table_interp: a table of {P} x {N} rows needs "
+                         f"{8 * (end + ring)} B of shared memory with its "
+                         f"lanes, more than the {SMEM_MAX} B a block has")
+    maps_shared = 8 * (end + map_words + ring) <= SMEM_MAX
+    sm_maps = end
+    if maps_shared:
+        end += map_words
+    tape_shared = 8 * (end + E * cw) <= SMEM_MAX
+    sm_tape = end
+    end += E * cw if tape_shared else ring
+    return {"maps": "shared" if maps_shared else "global",
+            "tape": "shared" if tape_shared else "ring",
+            "words": (sm_meta, sm_slots, sm_lanes, stride, sm_maps, sm_tape),
+            "smem_bytes": 8 * end}
+
+
+def plan(spec_key, P: int, N: int, E: int, cw: int) -> dict:
+    """`layout` for the map universe `spec_key`."""
+    return layout(_plan(spec_key)[-1], P, N, E, cw)
+
+
+def clock_khz() -> int:
+    """The rate of the clock the stamps count, in kHz, as the current CUDA
+    device reports it."""
+    fn = build.function("table_interp", "repro_table_interp_clock_khz", [_p])
+    khz = ctypes.c_int()
+    build.check(fn(ctypes.byref(khz)), "table_interp clock")
+    return khz.value
+
+
+def phase_split(stamps, khz: int, vec_slots) -> dict:
+    """Microseconds of each phase of one launch from its stamps (i64[P + 6],
+    on any device): copy-in, the sequential sub-lane, the vec sub-lane (and
+    each slot of `vec_slots`), of which applying HASH requests, copy-out,
+    the whole launch; and the number of HASH rounds."""
+    t = [int(v) for v in stamps.tolist()]
+    P = len(t) - 6
+    us = 1e3 / khz
+
+    def span(a, b):
+        return (t[b] - t[a]) * us
+
+    return {"copy_in": span(0, 1), "seq": span(1, 2), "vec": span(2, 2 + P),
+            "hash_apply": t[4 + P] * us, "copy_out": span(2 + P, 3 + P),
+            "total": span(0, 3 + P), "hash_rounds": t[5 + P],
+            "per_vec_slot": {p: span(2 + p, 3 + p) for p in vec_slots}}
+
+
 def table_interp_cuda(spec_key, table, rows, maps, aux, *,
                       match_all: bool = False, want_r0: bool = False):
     """One launch of the interpreter over `rows` i64[E, ctx_words] on a CUDA
     device. spec_key: the live table's map universe ((name, kind,
     max_entries, rec_width, num_shards) per fd); table: its device state
     ("packed" plus views); maps: {name: state} of those maps. Returns new
-    (maps, aux, r0 i64[P, E] or None). The new map states, the aux block
-    and the vec sub-lane's lane scratch are views of one allocation."""
-    global LAUNCHES
+    (maps, aux, r0 i64[P, E] or None). The new map states, the aux block,
+    the vec sub-lane's lane scratch and the stamps are views of one
+    allocation."""
+    global LAUNCHES, LAST_STAMPS
     dev = rows.device
     build.require(rows, "table_interp rows", torch.int64, 2, dev)
     packed = table["packed"]
@@ -139,11 +225,8 @@ def table_interp_cuda(spec_key, table, rows, maps, aux, *,
     E, cw = rows.shape
     if not 0 < E < 2**31 or cw < 2:
         raise ValueError(f"table_interp: tape of shape {tuple(rows.shape)}")
-    if 8 * packed.numel() > SMEM_MAX:
-        raise ValueError(f"table_interp: a table of {P} x {N} rows "
-                         f"({8 * packed.numel()} B) exceeds the "
-                         f"{SMEM_MAX} B of shared memory it is loaded into")
     template, fields, in_w, out_w, offsets, total = _plan(spec_key)
+    lay = layout(total, P, N, E, cw)
     ins = []
     for name, f, shape, _ in fields:
         t = maps[name][f]
@@ -163,7 +246,8 @@ def table_interp_cuda(spec_key, table, rows, maps, aux, *,
             raise ValueError(f"table_interp aux {f}: expected a contiguous "
                              f"int64 tensor on {dev}")
         words[W_AUX_IN + j] = t.data_ptr()
-    out = torch.empty(total + AUX_WORDS + E * LANE_WORDS, dtype=torch.int64,
+    scratch = E * LANE_WORDS + -(-E // 64)
+    out = torch.empty(total + AUX_WORDS + scratch + P + 6, dtype=torch.int64,
                       device=dev)
     base = out.data_ptr()
     words[in_w] = ins
@@ -173,15 +257,20 @@ def table_interp_cuda(spec_key, table, rows, maps, aux, *,
     words[W_TABLE], words[W_ROWS] = packed.data_ptr(), rows.data_ptr()
     words[W_AUX_OUT] = base + 8 * total
     words[W_LANES] = base + 8 * (total + AUX_WORDS)
+    words[W_STAMPS] = base + 8 * (total + AUX_WORDS + scratch)
     words[W_R0] = r0.data_ptr() if r0 is not None else 0
     words[W_P:W_CW + 1] = (P, N, E, cw)
     words[W_MATCH_ALL] = int(match_all)
+    words[W_MAPS_SHARED] = int(lay["maps"] == "shared")
+    words[W_TAPE_SHARED] = int(lay["tape"] == "shared")
+    words[W_SM_META:W_SM_META + 6] = lay["words"]
     with build.device_guard(dev):
-        rc = _fn()(words.ctypes.data, 8 * packed.numel(),
+        rc = _fn()(words.ctypes.data, lay["smem_bytes"],
                    build.stream_ptr(dev))
     build.check(rc, "table_interp")
     LAUNCHES += 1
-    parts = out.split([n for *_, n in fields] + [AUX_WORDS, E * LANE_WORDS])
+    parts = out.split([n for *_, n in fields] + [AUX_WORDS, scratch, P + 6])
+    LAST_STAMPS = parts[-1]
     out_maps: dict = {}
     for (name, f, shape, _), t in zip(fields, parts):
         out_maps.setdefault(name, {})[f] = t.view(shape) if len(shape) > 1 \

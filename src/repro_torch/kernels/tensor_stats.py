@@ -19,9 +19,10 @@ The body streams through 16-byte loads, four in flight per thread. Two
 epilogues: the dict entry (`tensor_stats_cuda`) and the row entry
 (`tensor_stats_row_cuda`), which writes the whole 16-lane event row.
 
-The partials and the ticket counter are one scratch buffer per device,
-kept for the process: the kernel assumes one stream at a time per device
-(the port uses one), and a call from another stream raises.
+The partials and the ticket counter are one scratch buffer per device and
+stream, kept for the process (`build.device_scratch`): launches on one
+stream run in order and leave the ticket at 0, and two streams never share
+a buffer, so any stream may call.
 """
 from __future__ import annotations
 

@@ -49,8 +49,17 @@ class ServeEngine:
 
     @property
     def last_tape(self):
-        """(rows, maps_in, step) of the last probed decode step, or None."""
-        return self._decode.last
+        """(rows, maps_in, step) of the last probed decode step, or None.
+        maps_in's live table is the one the step ran, from its generation's
+        snapshot: a sync since then has written the step's buffer."""
+        last = self._decode.last
+        if last is None:
+            return None
+        rows, maps, step, gen = last
+        if gen is not None and "__live_table__" in maps:
+            maps = {**maps, "__live_table__": self.runtime.live_table_at(
+                gen, rows.device)}
+        return rows, maps, step
 
     # ------------------------------------------------------------- admission
     def _admit(self, req: Request, fault_retries: int = 3) -> bool:

@@ -14,8 +14,12 @@ from ..models import registry as MR
 
 def make_decode_step(cfg: ModelConfig, runtime=None, probe_mode=None):
     """The decode step. It keeps the last step's event tape and the map
-    state it started from on `decode_step.last` (rows, maps_in, step), so a
-    caller can replay the tape through another probe mode."""
+    state it started from on `decode_step.last` (rows, maps_in, step,
+    table_gen), so a caller can replay the tape through another probe mode.
+    table_gen is the generation of the live table the step ran (None
+    without the live lane): a later `sync_live_table` writes the table in
+    maps_in in place, and `runtime.live_table_at(table_gen, device)` gives
+    back the one the step ran."""
     wanted = runtime.wanted_sites() if runtime else set()
 
     def decode_step(params, tokens, cache, maps, step: int):
@@ -35,7 +39,7 @@ def make_decode_step(cfg: ModelConfig, runtime=None, probe_mode=None):
         if runtime is not None and rows.shape[0] > 0:
             aux = J.make_aux(time_ns=step, device=tokens.device)
             rows[:, 3] = step
-            decode_step.last = (rows, maps, step)
+            decode_step.last = (rows, maps, step, runtime.table_generation)
             maps, aux = runtime.probe_stage(rows, maps, aux, mode=probe_mode)
         return nxt, logits, cache, maps
 

@@ -118,12 +118,41 @@ def test_tensor_stats_repeats_bit_identical_across_grids(cuda):
         _check_row(row, x, TTS.tensor_stats_cuda(x), (0, 0, 0))
 
 
-def test_tensor_stats_scratch_is_for_one_stream(cuda):
-    x = torch.randn(100, device=cuda)
-    TTS.tensor_stats_cuda(x)
-    with torch.cuda.stream(torch.cuda.Stream()):
-        with pytest.raises(RuntimeError, match="stream"):
-            TTS.tensor_stats_cuda(x)
+def test_probe_kernels_give_the_same_results_on_any_stream(cuda):
+    """tensor_stats (dict and row entries, one block and a grid) and the
+    hash fetch-add (both routes) keep scratch per (device, stream): called
+    on the default stream and on a side stream, in turns, they give
+    bit-identical results."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    xs = [torch.randn(n, generator=g, device=cuda) for n in (100, 1 << 20)]
+    rng = np.random.default_rng(5)
+    keys = torch.as_tensor(rng.integers(0, 300, 4096), device=cuda)
+    deltas = torch.as_tensor(rng.integers(-9, 9, 4096), device=cuda)
+    valid = torch.as_tensor(rng.random(4096) < 0.8, device=cuda)
+
+    def run():
+        out = []
+        for x in xs:
+            out += list(TTS.tensor_stats_cuda(x).values())
+            out.append(TTS.tensor_stats_row_cuda(x, 1, 2, 3))
+        for n, route in ((256, "shared"), (16384, "global")):
+            tbl = [torch.zeros(n, dtype=torch.int64, device=cuda)
+                   for _ in range(3)]
+            assert TH.plan(n, 4096)[0] == route
+            out += list(TH.hash_fetch_add_batch_cuda(*tbl, keys, deltas,
+                                                     valid))
+        torch.cuda.synchronize()
+        return [t.clone() for t in out]
+
+    side = torch.cuda.Stream()
+    results = []
+    for _ in range(2):
+        results.append(run())
+        with torch.cuda.stream(side):
+            results.append(run())
+    for again in results[1:]:
+        for a, b in zip(results[0], again):
+            assert torch.equal(a, b)
 
 
 def test_collector_one_launch_per_event(cuda):
@@ -344,12 +373,29 @@ def _interp_check(case, match_all):
     assert IC.compare(IC.to_cpu(got), want) == []
 
 
-@pytest.mark.parametrize("events", [1, 49, 4096])
+@pytest.mark.parametrize("events", [1, 49, 600, 4096])
 def test_interp_kernel_mixed_table_matches_plain(cuda, events):
     """Eight slots on both sub-lanes: counters, a HASH map that fills, a
     ringbuf that laps, every other helper, loops whose fuel runs out."""
     from repro_torch.kernels import interp_cases as IC
     _interp_check(IC.mixed_case(events, events, cuda), False)
+
+
+@pytest.mark.parametrize("events", [49, 600, 1029])
+@pytest.mark.parametrize("big", [False, True], ids=["shared", "global"])
+def test_interp_kernel_branching_hash_vec_matches_plain(cuda, events, big):
+    """A HASH fetch-add behind a data-dependent loop, forced onto the vec
+    sub-lane (its lanes reach HASH at different machine steps: the inserts
+    go in (step, lane) order), beside a sequential program and a vec
+    counter; the map states in shared memory and, with the big universe,
+    in device memory; tapes below, above and not a multiple of the block's
+    threads."""
+    from repro_torch.kernels import interp_cases as IC, table_interp as TI
+    case = IC.branch_case(events, events, cuda, big)
+    P, N = case[1]["hcls"].shape
+    assert TI.plan(case[0], P, N, events, 16)["maps"] == \
+        ("global" if big else "shared")
+    _interp_check(case, False)
 
 
 @pytest.mark.parametrize("events", [49, 4096])

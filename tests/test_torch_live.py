@@ -378,21 +378,20 @@ def test_isa_traps_program_matches_jax():
     assert int(tm["ic_trap_rb"]["dropped"][0]) > 0
 
 
-@pytest.fixture(scope="module")
-def mixed_pair():
-    """The eight-slot table the kernel is held to, on the port and on JAX
-    (its interpreter jitted once)."""
-    trt, _ = IC.mixed_runtime()
+def _jax_live(programs, max_programs):
+    """A JAX runtime with `programs` (interp_cases' format) on its live
+    table, set up as `interp_cases._runtime` sets up the port's, and its
+    interpreter over a tape, jitted once."""
     jrt = JRuntime()
-    for _, _, spec, *_ in IC.MIXED:
+    for _, _, spec, *_ in programs:
         if spec is not None:
             jrt.create_map(_jspec(spec))
     for spec in IC.MISC_MAPS:
         jrt.create_map(_jspec(spec))
-    jrt.enable_live_attach(max_programs=8, max_insns=64,
+    jrt.enable_live_attach(max_programs=max_programs, max_insns=64,
                            arm=("uprobe:ic_block", "uretprobe:ic_block",
                                 "probe:ic_logits"))
-    for name, text, spec, target, vec, fuel in IC.MIXED:
+    for name, text, spec, target, vec, fuel in programs:
         maps = IC.MISC_MAPS if spec is None else [spec]
         lk = jrt.attach(jrt.load_asm(name, text, [_jspec(m) for m in maps]),
                         target, mode="table", promote=False)
@@ -402,6 +401,26 @@ def mixed_pair():
             jrt.live.host["fuel"][lk.slot] = fuel
     run = jax.jit(lambda t, r, m: jrt.live.run(t, r, m,
                                                JJ.make_aux(**IC.AUX)))
+    return jrt, run
+
+
+def _run_both(jrt, run, trt, rows):
+    """(JAX maps, JAX aux, port maps, port aux) of both live tables over
+    one tape, from zeroed maps."""
+    jm = jrt.init_device_maps()
+    tm = trt.init_device_maps(CPU)
+    jm, ja = run(jm.pop("__live_table__"), jnp.asarray(jax_sites(rows)), jm)
+    tm, ta = trt.live.run(tm.pop("__live_table__"), torch.as_tensor(rows),
+                          tm, TJ.make_aux(device=CPU, **IC.AUX))
+    return jm, ja, tm, ta
+
+
+@pytest.fixture(scope="module")
+def mixed_pair():
+    """The eight-slot table the kernel is held to, on the port and on JAX
+    (its interpreter jitted once)."""
+    trt, _ = IC.mixed_runtime()
+    jrt, run = _jax_live(IC.MIXED, 8)
     return jrt, trt, run
 
 
@@ -413,15 +432,33 @@ def test_live_table_run_matches_jax_on_mixed_table(mixed_pair, seed):
     jrt, trt, run = mixed_pair
     assert_host_equal(jrt.live, trt.live)
     assert set(trt.live.host["vec"]) == {0, 1}
-    rows = IC.mixed_tape(240, seed)
-    jm = jrt.init_device_maps()
-    tm = trt.init_device_maps(CPU)
-    jm, ja = run(jm.pop("__live_table__"), jnp.asarray(jax_sites(rows)), jm)
-    tm, ta = trt.live.run(tm.pop("__live_table__"), torch.as_tensor(rows),
-                          tm, TJ.make_aux(device=CPU, **IC.AUX))
+    jm, ja, tm, ta = _run_both(jrt, run, trt, IC.mixed_tape(240, seed))
     assert_maps_equal(jm, tm, list(jm))
     assert_aux_equal(ja, ta)
     assert int(tm["ic_rb"]["dropped"][0]) > 0
+
+
+@pytest.mark.parametrize("big", [False, True], ids=["shared", "global"])
+@pytest.mark.parametrize("events", [49, 600])
+def test_live_table_run_matches_jax_on_branching_hash_vec(big, events):
+    """interp_cases' BRANCH table: a HASH fetch-add behind a data-dependent
+    loop forced onto the vec sub-lane (its lanes reach HASH at different
+    machine steps, so the inserts go in (step, lane) order and the full
+    16-slot map shows it), beside a sequential program and a vec counter;
+    with `big` the counter's map puts the universe past the kernel's
+    shared memory. The port's plain lane against JAX's on tapes below and
+    above the kernel's 512 threads."""
+    from repro_torch.kernels import table_interp as TI
+    trt, _ = IC.branch_runtime(big)
+    jrt, run = _jax_live(IC.branch_programs(big), 4)
+    assert_host_equal(jrt.live, trt.live)
+    assert trt.live.host["vec"].tolist() == [0, 1, 1, 0]
+    assert TI.plan(trt.live.spec_key, 4, 64, events, 16)["maps"] == \
+        ("global" if big else "shared")
+    jm, ja, tm, ta = _run_both(jrt, run, trt, IC.mixed_tape(events, events))
+    assert_maps_equal(jm, tm, list(jm))
+    assert_aux_equal(ja, ta)
+    assert int(tm["ic_bh"]["used"].sum()) == 16
 
 
 # ------------------------------------------------- kernel-mode baseline

@@ -433,3 +433,46 @@ def test_serving_with_a_mid_serve_table_attach_matches_jax():
     assert_maps_equal(je.maps, te.maps)
     assert int(te.maps["lv_rb"]["head"][0]) > 0
     assert int(te.maps["lv_counts"]["values"].sum()) > 0
+
+
+def test_replay_of_a_step_runs_the_table_it_ran_after_a_sync():
+    """sync_live_table writes the running step's table buffer in place, so
+    the state a decode step started from holds a later table after a sync.
+    The step records the generation it ran; replaying `last_tape` (its
+    input state with that generation's table) through the table lane gives
+    the step's own output maps."""
+    from repro_torch.configs import registry as TCFG
+    from repro_torch.launch import serve as TL
+    from repro_torch.models import registry as TMR
+    from repro_torch.serve.engine import ServeEngine as TEngine
+    cfg = TCFG.smoke("qwen2-0.5b")
+    rt = TRuntime()
+    for s in SPECS:
+        rt.create_map(_tspec(s))
+    rt.enable_live_attach(arm=("uprobe:block", "uretprobe:block",
+                               "probe:logits"))
+    rt.attach(rt.load_asm("lv_count", COUNT_BY_LAYER,
+                          [_tspec(SPEC_OF["lv_counts"])]), "uprobe:block",
+              mode="table", promote=False)
+    eng = TEngine(TMR.init_params(cfg, torch.Generator().manual_seed(0), CPU),
+                  cfg, slots=1, max_seq=32, runtime=rt, device=CPU)
+    eng.maps = rt.sync_live_table(eng.maps)
+    eng.submit_all(TL.make_requests(1, 2, cfg.vocab_size))
+    assert eng.step_count >= 1
+    out = {m: {f: t.clone() for f, t in st.items()}
+           for m, st in eng.maps.items() if m != "__live_table__"}
+    ran = rt.table_generation
+    rt.attach(rt.load_asm("lv_hist", HIST_NUMEL, [_tspec(SPEC_OF["lv_hist"])]),
+              "uprobe:block", mode="table", promote=False)
+    eng.maps = rt.sync_live_table(eng.maps)
+    # the in-place write reached the state the step started from
+    assert eng._decode.last[3] == ran < rt.table_generation == \
+        int(eng._decode.last[1]["__live_table__"]["packed"][-1])
+    rows, maps_in, step = eng.last_tape
+    assert int(maps_in["__live_table__"]["packed"][-1]) == ran
+    got, _ = rt.probe_stage(rows, maps_in, TJ.make_aux(time_ns=step,
+                                                       device=CPU))
+    assert int(out["lv_counts"]["values"].sum()) > 0
+    for m in out:
+        for f in out[m]:
+            assert torch.equal(got[m][f], out[m][f]), f"{m}.{f}"
