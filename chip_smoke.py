@@ -74,7 +74,31 @@ Phases:
      program attached;
   8. one training step of the smoke-width model (f32) at seq 4096 on the
      card and on the CPU from the same weights and batch: loss, gradient
-     norm, updated parameters and maps compared.
+     norm, updated parameters and maps compared;
+  9. the fleet worker and durable training, in a temporary directory it
+     deletes: (a) phase 3's model, probes and admission filter with the
+     live lane, served by ServeEngine(shm_dir=..., worker_id="w0"); after
+     4 requests a load_attach of LIVE_PROBES[0] (mode "table") is queued
+     through a second ShmRegion handle, after 4 more a detach of the link
+     status.json reports, then 2 more. Fails unless the decode step is
+     unchanged, both requests applied without error, the interpreter
+     launched once per probed step and the program counted on exactly the
+     steps it was attached, every probed step equals a fused-lane replay,
+     status.json shows the program in live_slots and then not, and a
+     reader process (spawn, the port alone) reads every map of w0 with an
+     even seq and a valid CRC, bit for bit the engine's maps. Prints the
+     host us per publish (median, p90), the bytes per publish, the ms from
+     queueing the request to the end of the first probe stage that ran
+     it, and warm ms per decode step with the shm plane and without, in
+     turns. (b) one training step at phase 7's shape and probes with
+     grad_compression="int8": the int8 round trip of its clipped gradients
+     on the card bit for bit the same function on CPU copies; its device
+     ms and the compression error. (c) run_training for 2 steps as shm
+     worker t0 with a blocking checkpoint after each; step_1 restored into
+     a fresh state on the card and step 2 taken again with the same
+     batch: parameters, optimizer state, step and maps equal step_2's
+     files bit for bit, and t0's published maps the final state's. Prints
+     the GB per checkpoint and the seconds to save and to restore.
 
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}. Any failure exits
@@ -864,10 +888,11 @@ def check_flash(torch, FA, ref):
 # --------------------------------------------------------------------------
 
 def serve(torch, cfg, device, params=None, *, requests=8, slots=4,
-          max_seq=128, max_new=8, admit_limit=12, probes=True):
+          max_seq=128, max_new=8, admit_limit=12, probes=True,
+          shm_dir=None, worker_id=None):
     """An engine and its requests. probes=False attaches no device probe;
     the admission filter (a host-side syscall program) stays, so the same
-    requests are served."""
+    requests are served. shm_dir joins the shm plane as `worker_id`."""
     from repro_torch.core.runtime import BpftimeRuntime
     from repro_torch.launch import serve as L
     from repro_torch.models import registry as MR
@@ -884,7 +909,8 @@ def serve(torch, cfg, device, params=None, *, requests=8, slots=4,
         gen.manual_seed(SEED)
         params = MR.init_params(cfg, gen, device)
     engine = ServeEngine(params, cfg, slots=slots, max_seq=max_seq,
-                         runtime=rt, device=device)
+                         runtime=rt, shm_dir=shm_dir, worker_id=worker_id,
+                         device=device)
     reqs = L.make_requests(requests, max_new, cfg.vocab_size, SEED)
     return engine, reqs
 
@@ -1005,9 +1031,20 @@ def profiled(torch, fn, groups, detail):
     """fn() under torch.profiler, every collector event in a range: (wall
     s, device us by group, per-kernel device ms and count of the group
     `detail`, the collector's device operations). Prints the ten kernels
-    with the most device time."""
+    with the most device time. fn must be repeatable: a window whose
+    profile lacks some of the tensor_stats kernels the counter saw
+    launched, and holds nothing else that is off, lost activity records,
+    and is profiled once more; the check below holds that second window
+    as it holds the first."""
     prof, pwall, launched = _profile_once(torch, fn)
     col = collector_ops(prof)
+    if col["events"] == launched and col["stats_kernels"] < launched and \
+            not col["other_device_ops"]:
+        print(f"  the profile holds {col['stats_kernels']} tensor_stats "
+              f"kernels of {launched} launched (records lost); profiling "
+              "once more", flush=True)
+        prof, pwall, launched = _profile_once(torch, fn)
+        col = collector_ops(prof)
     by_group = {g: 0.0 for g in list(groups) + ["other"]}
     top, per = [], {}
     for e in prof.key_averages():
@@ -1084,11 +1121,12 @@ def timing(torch, cfg, params):
         print(f"  warm {label}: {tokens} tokens, {steps} decode steps; "
               f"{', '.join(f'{m:.2f}' for m in ms)} ms per step (prefill "
               "included)", flush=True)
-    engine, reqs = serve(torch, cfg, "cuda", params)
+    from repro_torch.launch import serve as L
+    engine, _ = serve(torch, cfg, "cuda", params)
     torch.cuda.synchronize()
     pwall, by_group, probe, ops = profiled(
-        torch, lambda: engine.submit_all(reqs), PROBE_GROUPS,
-        "probe kernels")
+        torch, lambda: engine.submit_all(L.make_requests(
+            8, 8, cfg.vocab_size, SEED)), PROBE_GROUPS, "probe kernels")
     busy = sum(by_group.values())
     return {"warm_tokens_per_s": out["probed"]["tokens_per_s"][0],
             "warm_ms_per_step": out["probed"]["ms_per_step"][0],
@@ -1656,6 +1694,413 @@ def train_compare(torch, small, seq=4096, batch=2):
             "grad_leaf_rel_diff": d_g, "param_diff": d_p}
 
 
+# --------------------------------------------------------------------------
+# phase 9: the fleet worker and durable training
+# --------------------------------------------------------------------------
+
+def scratch_dir(need_bytes: int) -> str:
+    """A new directory for phase 9's shm region and checkpoints, on the
+    first of build/ and the temporary directory with `need_bytes` free."""
+    import shutil
+    import tempfile
+    frees = []
+    for cand in (ROOT / "build", Path(tempfile.gettempdir())):
+        cand.mkdir(parents=True, exist_ok=True)
+        free = shutil.disk_usage(cand).free
+        frees.append(f"{cand}: {free / 1e9:.1f} GB")
+        if free >= need_bytes:
+            return tempfile.mkdtemp(prefix="chip_smoke_fleet_", dir=cand)
+    fail(f"phase 9 needs {need_bytes / 1e9:.1f} GB free for two checkpoints "
+         f"and the shm region; free: {', '.join(frees)}")
+
+
+def fleet_reader(src: str, root: str, worker_id: str, queue) -> None:
+    """The reader process of phase 9 (started with spawn): attach worker
+    `worker_id`'s region read-only with the port alone (no JAX) and send
+    back every device map's snapshot -- seqlocked and CRC-checked by
+    snapshot_device_meta -- as (seq, {field: (dtype, shape, bytes)})."""
+    sys.path.insert(0, src)
+    sys.modules["jax"] = None
+    sys.modules["repro"] = None
+    from repro_torch.core.shm import ShmRegion
+    region = ShmRegion.attach(root, mode="r", worker_id=worker_id)
+    out = {}
+    for spec in region.specs:
+        st, seq, _ = region.snapshot_device_meta(spec.name)
+        out[spec.name] = (seq, {f: (a.dtype.str, a.shape, a.tobytes())
+                                for f, a in st.items()})
+    queue.put(out)
+
+
+def read_in_subprocess(root: str, worker_id: str) -> dict:
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    p = ctx.Process(target=fleet_reader, args=(str(SRC), root, worker_id, q))
+    p.start()
+    import queue
+    deadline = time.monotonic() + 300
+    try:
+        while True:
+            try:
+                out = q.get(timeout=1)
+                break
+            except queue.Empty:
+                if not p.is_alive() or time.monotonic() > deadline:
+                    fail(f"phase 9: the reader process gave no snapshot "
+                         f"(exit code {p.exitcode})")
+    finally:
+        p.join(timeout=60)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if p.exitcode != 0:
+        fail(f"phase 9: the reader process exited {p.exitcode}")
+    return out
+
+
+def fleet_serve(torch, ops, cfg, params, tmp, device="cuda"):
+    """(a): phase 3's model, probes and admission filter with the live lane
+    on, served by an engine that is shm worker w0. A load_attach of one
+    LIVE_PROBES program is queued through a second handle on the region
+    after the first requests, and a detach of the link status.json reports
+    after the next; every probed step is replayed through a runtime with
+    the program on the fused lane, and a reader process reads the region."""
+    import os
+    from repro_torch.core import loader, shm as SH
+    from repro_torch.core.maps import MapKind, MapSpec
+    from repro_torch.core.runtime import to_numpy
+    from repro_torch.launch import serve as L
+    from repro_torch.serve.engine import ServeEngine
+    root = os.path.join(tmp, "shm")
+    rt, _ = _live_runtime("table")
+    engine = ServeEngine(params, cfg, slots=4, max_seq=128, runtime=rt,
+                         shm_dir=root, worker_id="w0", device=device)
+    decode = engine._decode
+    steps, part, mark, applied, pub_us = [], [1], {}, [], []
+    stage, publish, poll = rt.probe_stage, rt.publish, rt.poll_control
+
+    def recording(rows, maps, aux, mode=None):
+        out = stage(rows, maps, aux, mode=mode)
+        steps.append((part[0], rows, {k: v for k, v in maps.items()
+                                      if k != "__live_table__"}, aux,
+                      out[0]))
+        if "applied" in mark and "first_run" not in mark:
+            torch.cuda.synchronize()
+            mark["first_run"] = time.perf_counter()
+        return out
+
+    def timed_publish(maps):
+        torch.cuda.synchronize()          # the step's own work is not timed
+        t0 = time.perf_counter()
+        publish(maps)
+        pub_us.append((time.perf_counter() - t0) * 1e6)
+
+    def recording_poll():
+        got = poll()
+        if got:
+            applied.extend(got)
+            if "queued" in mark:
+                mark.setdefault("applied", time.perf_counter())
+        return got
+    rt.probe_stage, rt.publish, rt.poll_control = (recording, timed_publish,
+                                                   recording_poll)
+    name, text, (mname, kind, n, w), target = L.LIVE_PROBES[0]
+    obj = loader.build_object(name, text, [MapSpec(mname, MapKind(kind), n,
+                                                   rec_width=w)],
+                              "uprobe", attach_to=target)
+    daemon = SH.ShmRegion.attach(root, worker_id="w0")
+    reqs = L.make_requests(10, 8, cfg.vocab_size, SEED + 2)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    interp = [0]                # interpreter launches at the end of each part
+
+    def end_part():
+        interp.append(ops.launch_counts()["table_interp"])
+    engine.submit_all(reqs[:4])                 # part 1: nothing live
+    end_part()
+    part[0] = 2
+    mark["queued"] = time.perf_counter()
+    daemon.request({"op": "load_attach", "object": obj.to_json(),
+                    "mode": "table", "promote": False})
+    engine.submit_all(reqs[4:8])                # part 2: the program live
+    end_part()
+    status_on = daemon.read_status()
+    links = [k for k, v in status_on["promotions"].items()
+             if v["lane"] == "table"]
+    if len(links) != 1:
+        fail(f"phase 9: status.json has table links {links}")
+    part[0] = 3
+    daemon.request({"op": "detach", "link_id": int(links[0])})
+    engine.submit_all(reqs[8:])                 # part 3: detached
+    end_part()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    status_off = daemon.read_status()
+    table_empty = not rt.live.host["active"].any()
+    del rt.probe_stage, rt.publish, rt.poll_control
+    probed = {k: sum(1 for s in steps if s[0] == k) for k in (1, 2, 3)}
+    if engine._decode is not decode:
+        fail("phase 9: the engine's decode step was rebuilt")
+    if [a.get("error") for a in applied] != [None, None] or \
+            [a["op"] for a in applied] != ["load_attach", "detach"]:
+        fail(f"phase 9: control requests applied as {applied}")
+    if status_on["live_slots"].get("0") != name or \
+            status_off["live_slots"].get("0") is not None or \
+            links[0] in status_off["links"]:
+        fail(f"phase 9: status.json live slots {status_on['live_slots']} "
+             f"then {status_off['live_slots']}")
+    # the table lane launches once per probed step while the live lane is
+    # on, whatever the table holds (as JAX's in-step table runs): an empty
+    # table costs a launch that changes nothing. So each part is held to
+    # one launch per probed step; that the program stopped running after
+    # the detach is shown by the empty host table here and by its map,
+    # which stops counting (below)
+    per_part = {k: interp[k] - interp[k - 1] for k in (1, 2, 3)}
+    if not all(probed.values()) or per_part != probed:
+        fail(f"phase 9: interpreter launches per part {per_part} for "
+             f"probed steps per part {probed}")
+    if not table_empty:
+        fail("phase 9: the live table still has an active slot after the "
+             "detach")
+    if any(launches[k] == 0 for k in ("tensor_stats", "hash_fetch_add_batch",
+                                      "ringbuf_emit_batch")):
+        fail(f"phase 9: a serving kernel was not launched: {launches}")
+    # the program ran on exactly the steps of part 2: one count per layer
+    for k, rows, maps_in, aux, out in steps:
+        moved = int(out[mname]["values"].sum() - maps_in[mname]["values"]
+                    .sum())
+        if moved != (cfg.num_layers if k == 2 else 0):
+            fail(f"phase 9: part {k}: the attached program counted {moved}")
+    rf, fp = _live_runtime(None)
+    link, detached = None, False
+    for k, rows, maps_in, aux, out in steps:
+        if k == 2 and link is None and not detached:
+            link = rf.attach(fp[name], target, mode="fused")
+        if k == 3 and link is not None:
+            rf.detach(link)
+            link, detached = None, True
+        want, _ = rf.probe_stage(rows, maps_in, aux)
+        bad = _same_maps(out, want)
+        if bad:
+            fail(f"phase 9: part {k}: {bad} differ from the fused-lane "
+                 "replay")
+    final = to_numpy(engine.maps)
+    nbytes = sum(a.nbytes for st in final.values() for a in st.values())
+    got = read_in_subprocess(root, "w0")
+    if sorted(got) != sorted(final):
+        fail(f"phase 9: the reader saw maps {sorted(got)}")
+    for m, (seq, fields) in got.items():
+        if seq % 2 or seq == 0:
+            fail(f"phase 9: the reader's {m} snapshot has seq {seq}")
+        for f, a in final[m].items():
+            if fields[f] != (a.dtype.str, a.shape, a.tobytes()):
+                fail(f"phase 9: the reader's {m}.{f} differs from the "
+                     "engine's maps")
+    pub = sorted(pub_us)
+    to_run_ms = (mark["first_run"] - mark["queued"]) * 1e3
+    print(f"  served {engine.step_count} decode steps ({probed} probed per "
+          f"part); publish {pub[len(pub) // 2]:.1f} us median, "
+          f"{pub[int(len(pub) * 0.9)]:.1f} us p90 of host ({len(pub)} "
+          f"publishes of {nbytes} bytes); request queued to the end of the "
+          f"first probe stage that ran it {to_run_ms:.2f} ms; kernels "
+          f"{json.dumps(launches)}", flush=True)
+    print(f"  decode step unchanged; {len(steps)} probed steps bit-identical "
+          "to the fused-lane replay; status.json live slot 0 "
+          f"{name} then empty; a reader process read all {len(got)} maps "
+          "with even seq and valid CRC, bit for bit the engine's",
+          flush=True)
+    return {"decode_steps": engine.step_count, "probed_steps": probed,
+            "publish_host_us_median": pub[len(pub) // 2],
+            "publish_host_us_p90": pub[int(len(pub) * 0.9)],
+            "publishes": len(pub), "bytes_per_publish": nbytes,
+            "request_to_run_ms": to_run_ms, "launches": launches}
+
+
+def shm_timing(torch, cfg, params, tmp, device="cuda"):
+    """Warm serving passes (host clock, prefill included) with the shm
+    plane (engine as a worker: poll, sync and publish every step) and
+    without it, in turns."""
+    import os
+    runs = {"shm": [], "none": []}
+    for i, with_shm in enumerate((True, False, False, True, True, False)):
+        engine, reqs = serve(torch, cfg, device, params,
+                             shm_dir=os.path.join(tmp, "timing") if with_shm
+                             else None, worker_id=f"p{i}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.submit_all(reqs)
+        torch.cuda.synchronize()
+        runs["shm" if with_shm else "none"].append(
+            (time.perf_counter() - t0) / engine.step_count * 1e3)
+    print(f"  warm ms per decode step (prefill included), in turns: with the "
+          f"shm plane {', '.join(f'{m:.2f}' for m in runs['shm'])}; without "
+          f"{', '.join(f'{m:.2f}' for m in runs['none'])}", flush=True)
+    return {"warm_ms_per_step_shm": runs["shm"],
+            "warm_ms_per_step_none": runs["none"]}
+
+
+def int8_step(torch, cfg, seq=4096, batch=4, microbatch=2, device="cuda"):
+    """(b): one training step with grad_compression="int8" at phase 7's
+    shape and probes. The step's own call of int8_roundtrip is recorded
+    (its input, the clipped gradients, and the output the update took) and
+    that output is held bit for bit against the same function on CPU
+    copies of the input."""
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.dist.compression import compression_error
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train import train_step as TS
+    rt, _, _ = _train_runtime()
+    tcfg = TrainConfig(microbatch=microbatch, remat=True, warmup=10,
+                       total_steps=3, grad_compression="int8")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    state = TS.init_train_state(cfg, tcfg, rt, gen, device)
+    step = TS.make_train_step(cfg, tcfg, rt, probe_mode="fused")
+    b = SyntheticDataset(cfg, ShapeConfig("int8", seq, batch, "train"),
+                         tcfg, seed=SEED).next()
+    roundtrip, calls = TS.int8_roundtrip, []
+
+    def recording(tree):
+        out = roundtrip(tree)
+        calls.append((tree, out))
+        return out
+    TS.int8_roundtrip = recording
+    try:
+        state, m = step(state, b)
+    finally:
+        TS.int8_roundtrip = roundtrip
+    del state
+    if len(calls) != 1:
+        fail(f"phase 9: the int8 step called int8_roundtrip {len(calls)} "
+             "times")
+    grads, card = calls.pop()
+    loss, gnorm, vetoed = float(m["loss"]), float(m["grad_norm"]), \
+        int(m["vetoed"])
+    if not (math.isfinite(loss) and math.isfinite(gnorm)) or vetoed:
+        fail(f"phase 9: the int8 step gave loss {loss}, grad norm {gnorm}, "
+             f"vetoed {vetoed}")
+    rt_ms = cuda_ms(torch, lambda: roundtrip(grads), reps=5, warmup=1)
+    err = float(compression_error(grads))
+    n = 0
+    for g, c in zip(tree_leaves(grads), tree_leaves(card)):
+        if c.device.type != torch.device(device).type:
+            fail(f"phase 9: a {tuple(g.shape)} gradient's round trip ran "
+                 f"on {c.device}")
+        if not _leaf_bits_equal(torch, c, roundtrip(g.cpu())):
+            fail(f"phase 9: the int8 round trip of a {tuple(g.shape)} "
+                 f"{g.dtype} gradient differs between card and CPU")
+        n += g.numel()
+    print(f"  int8 step: loss {loss:.5f}, grad norm {gnorm:.5f}; the step's "
+          f"round trip of {n} clipped gradients bit for bit the CPU's, "
+          f"{rt_ms:.3f} ms on the card; compression error {err:.3e}",
+          flush=True)
+    return {"loss": loss, "grad_norm": gnorm, "gradients": n,
+            "roundtrip_device_ms": rt_ms, "compression_error": err}
+
+
+def _leaf_bits_equal(torch, a, b) -> bool:
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        a, b = a.view(view), b.view(view)
+    return torch.equal(a, b)
+
+
+def ckpt_train(torch, cfg, tmp, seq=4096, batch=4, microbatch=2,
+               smoke=False, device="cuda"):
+    """(c): run_training for 2 steps as shm worker t0 with a checkpoint after
+    each; step_1 restored into a fresh state, step 2 taken again from it
+    with the same batch, held against step_2's files; t0's published maps
+    against the final state's."""
+    import os
+    from repro_torch.ckpt import checkpoint as CK
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.core.runtime import to_numpy
+    from repro_torch.core.shm import ShmRegion
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.launch import train as T
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+    shm, ck = os.path.join(tmp, "train_shm"), os.path.join(tmp, "ckpt")
+    os.makedirs(ck)
+    rt, _, _ = _train_runtime()
+    save, save_s = CK.save, []
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        out = save(*a, **kw)
+        save_s.append(time.perf_counter() - t0)
+        return out
+    CK.save = timed_save
+    try:
+        state, hist = T.run_training(
+            cfg.name, steps=2, smoke=smoke, runtime=rt,
+            probe_mode="fused", seq_len=seq, batch=batch,
+            microbatch=microbatch, log_every=0, shm_dir=shm, worker_id="t0",
+            ckpt_dir=ck, save_every=1, device=device)
+    finally:
+        CK.save = save
+    if CK.latest(ck) != 2 or len(save_s) != 2:
+        fail(f"phase 9: checkpoints {os.listdir(ck)} after 2 steps")
+    final = to_numpy(state["maps"])
+    region = ShmRegion.attach(shm, mode="r", worker_id="t0")
+    for m, st in final.items():
+        got = region.snapshot_device(m)
+        if any(not (got[f] == a).all() for f, a in st.items()):
+            fail(f"phase 9: t0's published {m} differs from the final state")
+    del state
+    gb = sum(os.path.getsize(os.path.join(ck, "step_1", f))
+             for f in os.listdir(os.path.join(ck, "step_1"))) / 1e9
+    tcfg = TrainConfig(microbatch=microbatch, remat=True, warmup=10,
+                       total_steps=2)
+    rt2, _, _ = _train_runtime()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 1)
+    fresh = init_train_state(cfg, tcfg, rt2, gen, device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = CK.restore(ck, 1, fresh, device=device)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del fresh
+    data = SyntheticDataset(cfg, ShapeConfig("ckpt", seq, batch, "train"),
+                            tcfg)
+    data.next()
+    state2, _ = make_train_step(cfg, tcfg, rt2, probe_mode="fused")(
+        restored, data.next())
+    del restored
+    want = CK.restore(ck, 2, state2, device="cpu")
+    with open(os.path.join(ck, "step_2", "tree.json")) as f:
+        names = json.load(f)["names"]
+    got_l, want_l = tree_leaves(state2), tree_leaves(want)
+    diff = [nm for nm, a, b in zip(names, got_l, want_l)
+            if not _leaf_bits_equal(torch, a, b)]
+    if any(not nm.startswith(("params/", "opt/")) for nm in diff):
+        fail(f"phase 9: the restored step 2 differs in {diff[:8]}")
+    if diff:
+        # not bitwise repeatable: phase 8's tolerances
+        for nm, a, b in zip(names, got_l, want_l):
+            d = float((a.detach().cpu().float() - b.float()).abs().max())
+            if nm in diff and d > TRAIN_PARAM_TOL:
+                fail(f"phase 9: restored step 2's {nm} is off by {d}")
+    print(f"  run_training as shm worker t0: 2 steps, checkpoints of "
+          f"{gb:.3f} GB saved in {', '.join(f'{t:.2f}' for t in save_s)} s "
+          f"(host copy and files, blocking), step_1 restored to the card in "
+          f"{restore_s:.2f} s; step 2 again from it: "
+          f"{'bit for bit' if not diff else f'{len(diff)} leaves within {TRAIN_PARAM_TOL}'}"
+          f" step_2's {len(names)} leaves; t0's published maps equal the "
+          "final state's", flush=True)
+    return {"gb_per_checkpoint": gb, "save_s": save_s,
+            "restore_s": restore_s, "leaves": len(names),
+            "not_bitwise": diff, "losses": [h["loss"] for h in hist]}
+
+
 def card_line() -> str:
     """The card's name and power limit as nvidia-smi prints them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1857,6 +2302,9 @@ def main(argv=None):
     tape = next((rows, aux) for k, rows, _, aux, *_ in live.pop("steps")
                 if k == 2)
     live.update(live_timing(torch, cfg, engine.params, tape))
+    from repro_torch.optim import tree_leaves
+    serve_params = engine.params              # phase 9 serves them again
+    n_params = sum(p.numel() for p in tree_leaves(serve_params))
     del engine, x, tape
     gc.collect()          # links and runtimes refer to each other
     torch.cuda.empty_cache()
@@ -1876,6 +2324,42 @@ def main(argv=None):
           flush=True)
     train["smoke_card_vs_cpu"] = train_compare(torch, small)
 
+    # ---- phase 9
+    print("phase 9: the fleet worker and durable training: serving as shm "
+          "worker w0 with a program attached and detached through the "
+          "control queue; an int8-compressed training step; run_training "
+          "with checkpoints, restored and stepped again", flush=True)
+    import shutil
+    t9 = time.perf_counter()
+    # two checkpoints of f32 parameters and both AdamW moments, plus 2 GB
+    tmp = scratch_dir(2 * 12 * n_params + (2 << 30))
+    try:
+        fleet = fleet_serve(torch, ops, cfg, serve_params, tmp)
+        fleet.update(shm_timing(torch, cfg, serve_params, tmp))
+        del serve_params
+        gc.collect()
+        torch.cuda.empty_cache()
+        for key, fn in (("int8", lambda: int8_step(torch, cfg)),
+                        ("ckpt", lambda: ckpt_train(torch, cfg, tmp))):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            fleet[key] = fn()
+            torch.cuda.synchronize()
+            fleet[key]["launches"] = ops.launch_counts()
+            if any(v == 0 for k, v in fleet[key]["launches"].items()
+                   if k != "table_interp"):
+                fail(f"phase 9: a kernel was not launched on the {key} "
+                     f"path: {fleet[key]['launches']}")
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    fleet["phase_s"] = time.perf_counter() - t9
+    print(f"  phase 9 took {fleet['phase_s']:.1f} s", flush=True)
+    p9 = {k: sum(fleet[part]["launches"][k]
+                 for part in ("int8", "ckpt")) + fleet["launches"][k]
+          for k in fleet["launches"]}
+
     # ---- report
     def pick(rows_, key, val):
         return next(r for r in rows_ if r[key] == val)
@@ -1894,7 +2378,8 @@ def main(argv=None):
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
                 "library_ms": row.get("library_ms"),
-                "library_is": row.get("library_is"), "shapes": shapes}
+                "library_is": row.get("library_is"),
+                "phase9_launches": p9[name], "shapes": shapes}
 
     report = {"kernels": [
         entry("tensor_stats", "tensor_stats.cu",
@@ -1921,7 +2406,7 @@ def main(argv=None):
                  "tokens_per_s": tokens / wall, "events": engine_events,
                  **times},
         "live": live,
-        "train": train, "train_launches_of_serving_kernels": {
+        "train": train, "fleet": fleet, "train_launches_of_serving_kernels": {
             k: tl[k] for k in serving_kernels},
         "flash_sm90_build": sm90_build, "probe_build": probe_build}
     print(json.dumps(report), flush=True)

@@ -20,11 +20,10 @@ Responsibilities:
     to the table lane when the program can land on the running step, and
     `promote=True` arms background promotion -- `core/promote.py` builds
     the fused-lane step off the critical path and `sync_live_table` swaps
-    it in at the next generation boundary, bit-identical.
-
-Not in this package yet: the artifact cache and the shm control plane
-(the fleet slice). Their entry points raise NotImplementedError;
-`publish` and `poll_control` are no-ops while no shm region is set up.
+    it in at the next generation boundary, bit-identical;
+  * shm control plane: publish device maps, poll daemon attach requests
+    (`setup_shm`, `publish`, `poll_control`); encoded table images are
+    shared through the fleet artifact cache.
 """
 from __future__ import annotations
 
@@ -52,12 +51,6 @@ WIDEN_STATS = {"fused_disjoint_pairs": 0}
 
 # live-table generations whose host snapshot a runtime keeps (live_table_at)
 TABLE_SNAPSHOTS = 64
-
-_LATER = {
-    "cache": "the artifact cache comes with the fleet slice (ROADMAP A11)",
-    "shm": "the shm control plane comes with the fleet slice (ROADMAP A11)",
-}
-
 
 def _ordering_resources(vprog: VerifiedProgram) -> dict:
     """{resource: commutative?} for one program. Two DIFFERENT programs may
@@ -160,6 +153,8 @@ class BpftimeRuntime:
         self.syscalls = S.SyscallTable(self.host_maps, self.map_specs,
                                        pid=pid)
         self.shm = None
+        self._req_cursor = 0
+        self._objects: dict[str, str] = {}   # name -> serialized object
         # 'fused' (default): single-pass multi-program dispatch;
         # 'scan' / 'vectorized': the per-attachment paths.
         self.exec_mode = "fused"
@@ -176,8 +171,9 @@ class BpftimeRuntime:
         self._promoter = None
         self._promoted_step = None    # step built by a promotion, for pickup
         self._overlay_tls = threading.local()
-        # the artifact cache comes with the fleet slice (A11); the training
-        # loop reads this as the JAX runtime's
+        # fleet-wide artifact cache of encoded table images
+        # (enable_artifact_cache / core/artifact_cache.py); setup_shm
+        # auto-joins <root>/cache
         self.artifact_cache = None
 
     # ---------------------------------------------------------------- maps
@@ -244,6 +240,9 @@ class BpftimeRuntime:
         pid = next(self._next_pid)
         self.progs[pid] = LoadedProg(pid, obj.name, obj.prog_type,
                                      vprog.insns, vprog, vabs=vabs)
+        self._objects[obj.name] = obj.to_json()
+        if self.shm is not None:
+            self.shm.publish_program(obj.to_json(), obj.name)
         return pid
 
     def load_relocatable(self, vabs: VerifiedProgram, name: str,
@@ -345,6 +344,9 @@ class BpftimeRuntime:
             raise loader.LoadError(
                 f"live table full ({self.live.max_programs} slots)")
         sid, ev_kind = parsed
+        # encoded table images are content-addressed in the fleet artifact
+        # cache (setup_shm auto-joins <root>/cache): the daemon fanning an
+        # attach out to N workers encodes once, N-1 workers reuse the image
         self.live.encode_slot(slot, prog.vprog, sid, ev_kind, pid=pid,
                               cache=self.artifact_cache)
         lid = next(self._next_link)
@@ -355,6 +357,7 @@ class BpftimeRuntime:
         self._live_slot_of[lid] = slot
         if promote and self._promoter is not None:
             self._promoter.schedule(link)
+        self.publish_status()
         return link
 
     def _table_attachable(self, pid: int, parsed) -> bool:
@@ -477,6 +480,7 @@ class BpftimeRuntime:
                 lk.promotion_state = "cancelled"   # promotion backs off
             slot = self._live_slot_of.pop(link_id)
             self.live.clear_slot(slot)
+            self.publish_status()
             return
         prog = self.progs[lk.pid]
         parts = lk.target.split(":")
@@ -493,6 +497,17 @@ class BpftimeRuntime:
             self.syscalls.detach(parts[1], parts[2], prog.name)
         elif kind == "filter":
             self.syscalls.detach(parts[1], "enter", prog.name)
+
+    # ---------------------------------------------------------------- cache
+    def enable_artifact_cache(self, root: str, max_bytes: int | None = None):
+        """Join (or create) a fleet artifact cache directory. Encoded table
+        images (attach(mode="table")) are stored under their content key;
+        any process sharing the directory reuses them instead of encoding
+        again. ``max_bytes`` arms the LRU size budget for long-lived fleets
+        (see artifact_cache.py)."""
+        from .artifact_cache import ArtifactCache
+        self.artifact_cache = ArtifactCache(root, max_bytes=max_bytes)
+        return self.artifact_cache
 
     def layout_fingerprint(self, attach_sig: tuple | None = None,
                            extra: tuple = ()) -> str:
@@ -511,6 +526,15 @@ class BpftimeRuntime:
         return L.layout_fingerprint(self.map_specs, E.EVENT_WIDTH,
                                     table_dims=dims, attach_sig=attach_sig,
                                     extra=extra)
+
+    def aot_step(self, build_fn, example_args, extra_key: tuple = ()):
+        """The JAX package's cold-join path reuses another worker's compiled
+        XLA executable. Eager PyTorch compiles no executable, so there is
+        nothing to store or reuse; a torch.compile or CUDA-graph counterpart
+        would come with ROADMAP A14."""
+        raise NotImplementedError(
+            "aot_step: eager PyTorch builds no executable to cache; a "
+            "compiled-step counterpart would come with ROADMAP A14")
 
     # ---------------------------------------------------------------- promote
     def enable_promotion(self, step_builder, example_args,
@@ -550,6 +574,7 @@ class BpftimeRuntime:
         link.lane, link.slot = "fused", None
         link.promotion_state = "fused"
         self._promoted_step = compiled
+        self.publish_status()
 
     @contextlib.contextmanager
     def _attach_overlay(self, extra: dict):
@@ -571,13 +596,6 @@ class BpftimeRuntime:
         for k, pids in extra.items():
             merged.setdefault(k, []).extend(pids)
         return merged
-
-    # ---------------------------------------------------------------- later
-    def enable_artifact_cache(self, *args, **kwargs):
-        raise NotImplementedError(_LATER["cache"])
-
-    def setup_shm(self, *args, **kwargs):
-        raise NotImplementedError(_LATER["shm"])
 
     # ---------------------------------------------------------------- device
     def wanted_sites(self) -> set[tuple[int, int]]:
@@ -670,15 +688,106 @@ class BpftimeRuntime:
         return map_states, aux
 
     # ---------------------------------------------------------------- shm
+    def setup_shm(self, root: str, worker_id: str | None = None,
+                  group: str | None = None):
+        """Join the shm control plane. worker_id=None keeps the
+        single-process layout; a worker id places this process's device
+        snapshots, host maps, and control queue under
+        `<root>/workers/<wid>/` so a fleet daemon can aggregate N such
+        processes into one global view. `group` names the node aggregator
+        that folds this worker in a hierarchical fleet -- the node claims
+        its group members dynamically, so the worker may join before or
+        after its node boots. The step stays on its device."""
+        import os
+        from .shm import ShmRegion
+        self.shm = ShmRegion.create(root, self.map_specs,
+                                    worker_id=worker_id, group=group)
+        # host maps become shm-backed (live for the daemon)
+        for spec in self.map_specs:
+            self.host_maps[spec.name] = self.shm.host[spec.name]
+        for name, obj_json in self._objects.items():
+            self.shm.publish_program(obj_json, name)
+        # every fleet member shares one artifact cache next to the shm
+        # plane -- the Nth joiner reuses the first joiner's table images
+        if self.artifact_cache is None:
+            self.enable_artifact_cache(os.path.join(root, "cache"))
+        self.publish_status()
+        return self.shm
+
     def publish(self, map_states) -> None:
+        """Seqlocked snapshot of the device map states into the shm region,
+        through sys_shm_publish: one host copy of all of them (`to_numpy`,
+        which leaves out the live table). A no-op without shm."""
         if self.shm is None:
             return
-        raise NotImplementedError(_LATER["shm"])
+        host_states = to_numpy(map_states)
+        self.syscalls.invoke(
+            "sys_shm_publish", [len(map_states)],
+            impl=lambda: self.shm.publish_device(host_states))
 
     def poll_control(self) -> list[dict]:
+        """Pick up daemon attach/detach/load requests (between steps).
+        Everything routes through the unified attach(): requests carry
+        "mode" ("auto"/"fused"/"table") and "promote"; legacy requests
+        with "live": true map to mode="table" (the running step picks them
+        up after the loop calls sync_live_table()), legacy requests without
+        either map to mode="fused" (the epoch-bumping path). Each applied
+        load_attach reports the assigned link id, lane, and promotion
+        state so the daemon can detach/confirm it later. A request that
+        fails is reported with its "error", never raised."""
         if self.shm is None:
             return []
-        raise NotImplementedError(_LATER["shm"])
+        reqs, self._req_cursor = self.shm.poll_requests(self._req_cursor)
+        applied = []
+        for r in reqs:
+            try:
+                if r["op"] == "load_attach":
+                    obj = ProgramObject.from_json(r["object"])
+                    pid = self.load_object(obj)
+                    tgt = r.get("target") or obj.attach_to
+                    mode = r.get("mode") or ("table" if r.get("live")
+                                             else "fused")
+                    # missing "promote" (hand-rolled/legacy request) pins
+                    # the link to its lane -- promotion is strictly opt-in
+                    # over the wire
+                    link = self.attach(pid, tgt, mode=mode,
+                                       promote=bool(r.get("promote", False)))
+                    applied.append({**r, "link_id": int(link),
+                                    "lane": link.lane,
+                                    "promotion": link.promotion_state})
+                    continue
+                elif r["op"] == "detach":
+                    self.detach(int(r["link_id"]))
+                applied.append(r)
+            except Exception as e:  # control plane must not kill training
+                applied.append({**r, "error": str(e)})
+        if applied:     # idle polls stay a pure request-counter read
+            self.publish_status()
+        return applied
+
+    def publish_status(self) -> None:
+        """Expose the control plane's view to the daemon: live-table
+        generation + active links, so a requester can confirm its program
+        went live (or was rejected) without attaching a debugger."""
+        if self.shm is None:
+            return
+        import os
+        self.shm.publish_status({
+            "worker_id": self.shm.worker_id,
+            "pid": os.getpid(),
+            "attach_epoch": self.attach_epoch,
+            "live_gen": int(self.live.host["gen"][0]) if self.live else 0,
+            "live_slots": ({str(p): (self.progs[pid].name
+                                     if pid is not None else None)
+                            for p, pid in enumerate(self.live.slot_pid)}
+                           if self.live else {}),
+            "links": {str(lid): lk.target for lid, lk in self.links.items()},
+            "promotions": {str(lid): {"lane": lk.lane,
+                                      "state": lk.promotion_state}
+                           for lid, lk in self.links.items()},
+            "cache": (dict(self.artifact_cache.counters)
+                      if self.artifact_cache is not None else {}),
+        })
 
     # ---------------------------------------------------------------- misc
     def ringbuf_drain(self, map_states, name: str, cursor: int):
@@ -692,6 +801,6 @@ class BpftimeRuntime:
 def to_numpy(map_states) -> dict:
     """{map: {field: numpy array}} copy of a device map state (the live
     table, `__live_table__`, is not a map and is left out)."""
-    return {name: {f: a.detach().cpu().numpy() for f, a in st.items()}
+    return {name: {f: a.detach().to("cpu", copy=True).numpy()
+                   for f, a in st.items()}
             for name, st in map_states.items() if name != "__live_table__"}
-

@@ -809,12 +809,22 @@ class LiveTable:
         return f"tblimg-{program_digest(blob)}"
 
     def _encoded_image(self, vprog: VerifiedProgram, cache) -> dict:
-        """The packed insn arrays. The fleet artifact cache that shares
-        them across workers comes with the fleet plane (ROADMAP A11)."""
+        """Fetch the packed insn arrays from the fleet artifact cache, or
+        encode and publish them -- the live-attach fanout path encodes each
+        program once fleet-wide instead of once per worker."""
+        n = len(vprog.insns)
+        key = None
         if cache is not None:
-            raise NotImplementedError("the artifact cache comes with the "
-                                      "fleet slice (ROADMAP A11)")
-        return isa.encode_table_program(vprog.insns, TABLE_HELPER_INDEX)
+            key = self.image_key(vprog)
+            img = cache.get_table(key)
+            if img is not None and set(img) >= set(TABLE_FIELDS) and \
+                    all(len(img[f]) == n for f in TABLE_FIELDS):
+                return img
+        tp = isa.encode_table_program(vprog.insns, TABLE_HELPER_INDEX)
+        if cache is not None:
+            cache.put_table(key, {f: np.asarray(tp[f], np.int64)
+                                  for f in TABLE_FIELDS})
+        return tp
 
     def encode_slot(self, slot: int, vprog: VerifiedProgram, site_id: int,
                     kind: int, pid: int = 0, cache=None) -> None:

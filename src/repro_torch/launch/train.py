@@ -1,20 +1,21 @@
 """End-to-end training driver, on the GPU by default.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
-        --steps 50 [--full] [--batch 8 --seq 64] [--device cpu]
+        --steps 50 [--full] [--batch 8 --seq 64] [--device cpu] \
+        [--probes] [--shm DIR [--worker-id w0]] [--ckpt DIR --save-every 2]
 
 `--smoke` (the default) trains the reduced config of the architecture;
 `--full` trains it at its published widths. Integration points exercised
 here (the paper's workflow, §3.2):
   * probes attach/detach between steps WITHOUT restarting training -- an
     attach_epoch change rebuilds the step, state carries over;
-  * per-step syscalls (data fetch, step begin and end) run their eBPF
-    hooks; a filter program on sys_data_fetch can veto batches;
+  * a shm control plane lets an external daemon read the maps after every
+    step and inject programs live;
+  * per-step syscalls (data fetch, checkpoint, step begin and end) run
+    their eBPF hooks; filter programs can veto batches or checkpoints;
   * with the live lane on, table attaches land on the running step at the
     next `sync_live_table`, and promoted links hand the loop the step
     their promotion built.
-The shm control plane, the artifact cache and checkpoints come with
-later slices: asking for them raises NotImplementedError.
 
 TRAIN_PROBES is the instrumentation chip_smoke.py trains with.
 """
@@ -114,29 +115,34 @@ def run_training(arch: str, *, steps: int = 20, smoke: bool = True,
     """Train `arch` for `steps` steps on `device` (CUDA unless the caller
     passes "cpu"). Returns (state, history); history holds one dict of
     floats per step (loss, grad_norm, lr, vetoed). on_step(step, state,
-    metrics) runs after each step."""
+    metrics) runs after each step. With a runtime, `shm_dir` joins the
+    shm plane (as <shm_dir>/workers/<worker_id>/ with an id) and
+    `cache_dir` names the artifact cache of table images (default
+    <shm_dir>/cache); `ckpt_dir` with `save_every` saves a blocking
+    checkpoint every `save_every` steps."""
     from ..configs import registry
     from ..configs.base import ShapeConfig, TrainConfig
     from ..data.pipeline import SyntheticDataset
     from ..device import resolve
     from ..train.train_step import init_train_state, make_train_step
+    from ..ckpt import checkpoint as CK
 
-    if shm_dir:
-        raise NotImplementedError("the shm control plane (shm_dir) comes "
-                                  "with the fleet slice (ROADMAP A11)")
-    if cache_dir:
-        raise NotImplementedError("the artifact cache (cache_dir) comes "
-                                  "with the fleet slice (ROADMAP A11)")
-    if ckpt_dir:
-        raise NotImplementedError("checkpoints (ckpt_dir) come with the "
-                                  "distribution and tooling slice "
-                                  "(ROADMAP A12)")
-    del worker_id, worker_group, save_every    # only with shm / ckpt
     dev = resolve(device)
     cfg = registry.smoke(arch) if smoke else registry.get(arch)
     tcfg = TrainConfig(microbatch=microbatch, remat=True, warmup=10,
                        total_steps=steps)
     shape = ShapeConfig("driver", seq_len, batch, "train")
+    if runtime is not None and cache_dir:
+        # explicit cache dir wins over the <shm>/cache default setup_shm
+        # would otherwise join
+        runtime.enable_artifact_cache(cache_dir)
+    if runtime is not None and shm_dir:
+        # worker_id=None keeps the single-process layout; with an id, this
+        # trainer joins <shm_dir>/workers/<wid>/ so a fleet daemon can
+        # aggregate several trainers into one global map view; worker_group
+        # names the node aggregator that folds this trainer in a
+        # hierarchical fleet
+        runtime.setup_shm(shm_dir, worker_id=worker_id, group=worker_group)
 
     data = SyntheticDataset(cfg, shape, tcfg, runtime=runtime)
     gen = torch.Generator(device=dev)
@@ -194,6 +200,8 @@ def run_training(arch: str, *, steps: int = 20, smoke: bool = True,
             runtime.syscalls.invoke(
                 "sys_step_end", [s, int(1e6 * (time.time() - t0))],
                 impl=lambda: None)
+        if ckpt_dir and save_every and s % save_every == 0:
+            CK.save(ckpt_dir, s, state, runtime=runtime, blocking=True)
         if on_step is not None:
             on_step(s, state, metrics)
         if log_every and s % log_every == 0:
@@ -214,16 +222,26 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--shm")
-    ap.add_argument("--worker-id")
-    ap.add_argument("--worker-group")
+    ap.add_argument("--worker-id",
+                    help="join the fleet layout as <shm>/workers/<id>/")
+    ap.add_argument("--worker-group",
+                    help="aggregation group: the node aggregator that "
+                         "folds this trainer in a hierarchical fleet")
     ap.add_argument("--ckpt")
     ap.add_argument("--save-every", type=int, default=0)
-    ap.add_argument("--cache")
+    ap.add_argument("--cache",
+                    help="artifact cache directory of table images "
+                         "(defaults to <shm>/cache when --shm is given)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--probes", action="store_true",
+                    help="attach TRAIN_PROBES on the fused lane")
     args = ap.parse_args(argv)
 
     from ..core.runtime import BpftimeRuntime
-    rt = BpftimeRuntime() if (args.shm or args.cache) else None
+    rt = BpftimeRuntime() if (args.shm or args.cache or args.probes) \
+        else None
+    if args.probes:
+        attach_train_probes(rt)
     state, hist = run_training(
         args.arch, steps=args.steps, smoke=args.smoke, runtime=rt,
         shm_dir=args.shm, worker_id=args.worker_id,

@@ -68,7 +68,8 @@ def _rope_freqs(cfg: ModelConfig, device):
 def apply_rope(x, positions, cfg: ModelConfig):
     """x: [..., S, H, hd]; positions: [..., S] integer."""
     if cfg.rope_kind == "mrope":
-        raise NotImplementedError("M-RoPE comes with the VLM slice")
+        raise NotImplementedError("M-RoPE comes with the VLM slice "
+                                  "(ROADMAP A13)")
     freqs = _rope_freqs(cfg, x.device)                   # [hd/2]
     ang = positions.to(F32)[..., None] * freqs          # [..., S, hd/2]
     cos = torch.cos(ang)[..., None, :]                  # [..., S, 1, hd/2]

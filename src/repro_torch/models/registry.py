@@ -17,7 +17,7 @@ from . import transformer as TF
 def _check_family(cfg: ModelConfig):
     if cfg.family == "encdec":
         raise NotImplementedError(f"{cfg.name}: the encoder-decoder family "
-                                  "comes with a later slice")
+                                  "comes with a later slice (ROADMAP A13)")
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,

@@ -26,10 +26,11 @@ def _check_dense(cfg: ModelConfig):
     for j in range(cfg.superblock):
         if cfg.block_kind(j) != "attn" or cfg.ffn_kind(j) != "dense":
             raise NotImplementedError(
-                f"{cfg.name}: MoE and SSM blocks come with later slices")
+                f"{cfg.name}: MoE and SSM blocks come with later slices "
+                "(ROADMAP A13)")
     if cfg.rope_kind == "mrope":
         raise NotImplementedError(f"{cfg.name}: M-RoPE comes with the VLM "
-                                  "slice")
+                                  "slice (ROADMAP A13)")
 
 
 # --------------------------------------------------------------------------

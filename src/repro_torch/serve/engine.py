@@ -31,7 +31,8 @@ class Request:
 class ServeEngine:
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 4,
                  max_seq: int = 128, runtime=None, eos: int = -1,
-                 device="cuda"):
+                 shm_dir: str | None = None,
+                 worker_id: str | None = None, device="cuda"):
         self.device = resolve(device)
         self.params = params
         self.cfg = cfg
@@ -39,6 +40,11 @@ class ServeEngine:
         self.max_seq = max_seq
         self.runtime = runtime
         self.eos = eos
+        if runtime is not None and shm_dir:
+            # serve workers join the same fleet plane as trainers: per-step
+            # map snapshots publish under workers/<wid>/ and live attach
+            # requests fan in through this worker's control queue
+            runtime.setup_shm(shm_dir, worker_id=worker_id)
         self.cache = MR.make_cache(cfg, slots, max_seq, torch.float32,
                                    self.device)
         self.active: list[Request | None] = [None] * slots
@@ -105,6 +111,11 @@ class ServeEngine:
         pending = [r for r in queue if not r.rejected]
 
         while pending or any(self.active):
+            if self.runtime is not None and self.runtime.shm is not None:
+                # daemon injection point: live attach requests land on the
+                # running decode step without rebuilding it
+                self.runtime.poll_control()
+                self.maps = self.runtime.sync_live_table(self.maps)
             # refill slots
             for s in range(self.slots):
                 if self.active[s] is None and pending:
@@ -121,6 +132,8 @@ class ServeEngine:
             if self._decode.last is not None:
                 self.events += self._decode.last[0].shape[0]
             self.step_count += 1
+            if self.runtime is not None:
+                self.runtime.publish(self.maps)   # no-op without shm
             nxt = nxt.tolist()
             for s, r in enumerate(self.active):
                 if r is None:

@@ -1,5 +1,6 @@
 """The train step: loss -> grads (with microbatch accumulation and remat)
--> clip -> probe-execution stage -> optimizer.
+-> clip -> int8 round trip (grad_compression="int8") -> probe-execution
+stage -> optimizer.
 
 bpftime integration points:
   * model probe sites fire during the forward (uprobe analogue), once per
@@ -32,6 +33,7 @@ import torch
 from ..configs.base import ModelConfig, TrainConfig
 from ..core import events as E, jit as J
 from ..device import resolve
+from ..dist.compression import int8_roundtrip
 from ..models import registry as MR
 from ..optim import (clip_by_global_norm, make_optimizer, tree_leaves,
                      tree_map, warmup_cosine)
@@ -78,9 +80,6 @@ def _with_leaves(tree, leaves: list):
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, runtime=None,
                     probe_mode: str | None = None):
-    if tcfg.grad_compression == "int8":
-        raise NotImplementedError("int8 gradient compression comes with the "
-                                  "distribution slice (ROADMAP A12)")
     _, opt_update = make_optimizer(tcfg.optimizer)
     wanted = runtime.wanted_sites() if runtime else set()
 
@@ -117,6 +116,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, runtime=None,
                 loss, grads = loss_and_grads(params, batch, col)
 
             grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
+            if tcfg.grad_compression == "int8":
+                # after the clip, as JAX: 'grad.norm' sees the norm from
+                # before compression
+                grads = int8_roundtrip(grads)
             if col is not None:
                 E.probe_site("grad.norm", gnorm.reshape(1))
                 E.probe_site("optimizer.update", loss.reshape(1))

@@ -754,6 +754,10 @@ live = {"repro_torch.core.table_interp", "repro_torch.core.promote",
         "repro_torch.core.callback_probe", "repro_torch.kernels.table_interp",
         "repro_torch.kernels.interp_cases"}
 assert live <= set(names), live - set(names)
+fleet = {"repro_torch.dist.compression", "repro_torch.ckpt.checkpoint",
+         "repro_torch.ft.fault_tolerance", "repro_torch.core.faults",
+         "repro_torch.core.shm", "repro_torch.core.artifact_cache"}
+assert fleet <= set(names), fleet - set(names)
 print(len(names))
 """
     env = dict(os.environ)
@@ -761,4 +765,4 @@ print(len(names))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 59
+    assert int(out.stdout.strip()) >= 68

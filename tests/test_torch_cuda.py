@@ -527,3 +527,32 @@ def test_hash_kernel_hidden_resident_key(cuda, first, route):
     """A resident key hidden behind an empty slot takes the kernel's general
     insert (a leader may match once an earlier insert fills the gap)."""
     _hash_check(cuda, *_hidden_case(first), route)
+
+
+def test_publish_of_cuda_maps_equals_to_numpy(cuda, tmp_path):
+    """The shm plane's publish makes one host copy of CUDA map states; the
+    region reads them back bit for bit."""
+    from repro_torch.core.runtime import BpftimeRuntime, to_numpy
+    from repro_torch.core.shm import ShmRegion
+    rt = BpftimeRuntime()
+    for s in (M.MapSpec("a", M.MapKind.ARRAY, 64),
+              M.MapSpec("h", M.MapKind.HASH, 32),
+              M.MapSpec("r", M.MapKind.RINGBUF, 8, rec_width=3),
+              M.MapSpec("l", M.MapKind.LOG2HIST)):
+        rt.create_map(s)
+    rt.setup_shm(str(tmp_path), worker_id="w0")
+    maps = rt.init_device_maps(cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for st in maps.values():
+        for t in st.values():
+            t.copy_(torch.randint(-2**40, 2**40, t.shape, generator=g,
+                                  device=cuda))
+    rt.publish(maps)
+    want = to_numpy(maps)
+    region = ShmRegion.attach(str(tmp_path), mode="r", worker_id="w0")
+    for name, st in maps.items():
+        got, seq, _ = region.snapshot_device_meta(name)
+        assert seq == 2
+        for f, t in st.items():
+            assert torch.equal(torch.from_numpy(got[f]), t.cpu())
+            assert (want[name][f] == got[f]).all()

@@ -511,12 +511,14 @@ def test_run_training_on_cpu_loss_decreases(capsys):
 
 
 def test_run_training_asks_for_cuda_and_refuses_later_slices():
-    with pytest.raises(NotImplementedError, match="fleet"):
-        TL.run_training(ARCH, steps=1, shm_dir="x", device=CPU)
-    with pytest.raises(NotImplementedError, match="A12"):
-        TL.run_training(ARCH, steps=1, ckpt_dir="x", device=CPU)
-    with pytest.raises(NotImplementedError, match="distribution"):
-        t_make(TCFG_, TB.TrainConfig(grad_compression="int8"))
+    # shm, the artifact cache, checkpoints and int8 compression are ported;
+    # a cached compiled step and elastic restore wait for ROADMAP A14
+    with pytest.raises(NotImplementedError, match="A14"):
+        TRuntime().aot_step(lambda: None, ())
+    from repro_torch.ckpt import checkpoint as CK
+    with pytest.raises(NotImplementedError, match="A14"):
+        CK.restore("x", 1, {}, shardings={})
+    t_make(TCFG_, TB.TrainConfig(grad_compression="int8"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TL.run_training(ARCH, steps=1)
