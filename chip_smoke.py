@@ -98,7 +98,33 @@ Phases:
      a fresh state on the card and step 2 taken again with the same
      batch: parameters, optimizer state, step and maps equal step_2's
      files bit for bit, and t0's published maps the final state's. Prints
-     the GB per checkpoint and the seconds to save and to restore.
+     the GB per checkpoint and the seconds to save and to restore;
+ 10. the fleet aggregator and the grammar fuzzer, in a temporary
+     directory it deletes: (a) four ServeEngine workers w000-w003 on the
+     card (phase 6's runtime each, one set of phase 3's weights) serve
+     seeded requests in turns while a spawned process (the port alone)
+     runs TreeAggregator(fan_in=2, depth=1) with its node folds on the
+     card; after w000's turn of round 2 `python -m
+     repro_torch.core.daemon <root> attach LIVE_PROBES[0] --mode table
+     --worker w001 --worker w002` queues an attach, after its turn of
+     round 3 the matching detach. Fails unless the root's global view is
+     bit for bit the flat oracle (the workers' final published maps
+     folded by the numpy twins) and a fresh flat Aggregator's, `fleet
+     health --json` shows four HEALTHY workers, two nodes and no
+     stream_lost or hash_dropped, `map dump` of the HASH map is the global
+     view, the program counted on w001 and w002 only while attached, and
+     their probed steps equal a fused-lane replay. Prints host ms per node
+     and root cycle, the node fold's device ms beside the numpy twin's on
+     the same stacks, ms from a publish to the first root view that holds
+     it, and the CLI request's ms from queue to first run. (b) 64 worker
+     regions with benchmarks/probe_pipeline.py's fleet-scale specs and
+     schedule (384 events a worker a round, 7 rounds after a warm one)
+     folded by a tree of fan-in 8 on the card, the same tree with the
+     numpy twins and the flat Aggregator: all three views bit for bit
+     equal; median ms per node, root and flat cycle. (c) the port's fuzz
+     harness over seeds 0-99 and more within 30 s, every lane on the
+     card, and every tests/corpus case: no mismatch; cases, lanes by
+     kind, interpreter launches, seconds.
 
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}. Any failure exits
@@ -1698,9 +1724,10 @@ def train_compare(torch, small, seq=4096, batch=2):
 # phase 9: the fleet worker and durable training
 # --------------------------------------------------------------------------
 
-def scratch_dir(need_bytes: int) -> str:
-    """A new directory for phase 9's shm region and checkpoints, on the
-    first of build/ and the temporary directory with `need_bytes` free."""
+def scratch_dir(need_bytes: int, what: str = "phase 9") -> str:
+    """A new directory for phase 9's (or 10's) shm regions and
+    checkpoints, on the first of build/ and the temporary directory with
+    `need_bytes` free."""
     import shutil
     import tempfile
     frees = []
@@ -1710,8 +1737,8 @@ def scratch_dir(need_bytes: int) -> str:
         frees.append(f"{cand}: {free / 1e9:.1f} GB")
         if free >= need_bytes:
             return tempfile.mkdtemp(prefix="chip_smoke_fleet_", dir=cand)
-    fail(f"phase 9 needs {need_bytes / 1e9:.1f} GB free for two checkpoints "
-         f"and the shm region; free: {', '.join(frees)}")
+    fail(f"{what} needs {need_bytes / 1e9:.1f} GB free for its shm regions "
+         f"and files; free: {', '.join(frees)}")
 
 
 def fleet_reader(src: str, root: str, worker_id: str, queue) -> None:
@@ -2101,6 +2128,528 @@ def ckpt_train(torch, cfg, tmp, seq=4096, batch=4, microbatch=2,
             "not_bitwise": diff, "losses": [h["loss"] for h in hist]}
 
 
+# --------------------------------------------------------------------------
+# phase 10: the fleet aggregator and the grammar fuzzer
+# --------------------------------------------------------------------------
+
+FLEET_WIDS = ("w000", "w001", "w002", "w003")
+ATTACHED = ("w001", "w002")          # the CLI attach's --worker targets
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(len(xs) * q))] if xs else float("nan")
+
+
+def tree_aggregator(src, root, wids, device, stop, out) -> None:
+    """The aggregator process of phase 10(a) (started with spawn): the port
+    alone runs TreeAggregator(root, fan_in=2, depth=1) with its node folds
+    on `device`, cycling until `stop` is set and twice more after it, and
+    sends back its cycle times, what each cycle had folded, and the node
+    folds' device time beside the numpy twins' on the same stacks."""
+    sys.path.insert(0, src)
+    sys.modules["jax"] = None
+    sys.modules["repro"] = None
+    import numpy as np
+    import torch
+    from repro_torch.core import daemon as D, maps as M
+    from repro_torch.core.treeagg import TreeAggregator
+    z = np.zeros((2, 4), np.int64)
+    # the CUDA context and the fold's first launches are not timed
+    M.t_group_summary_fold_multi({"w": {"values": (z[0], z, z)}}, device)
+    M.t_hash_coalesce(np.arange(4), np.ones(4, np.int64), device)
+    stacks, fold = [], M.t_group_summary_fold_multi
+
+    def recording(s, device="cuda"):
+        stacks.append(s)
+        del stacks[:-24]
+        return fold(s, device)
+    M.t_group_summary_fold_multi = recording
+    tree = TreeAggregator(root, fan_in=2, depth=1, worker_ids=wids,
+                          config=D.AggregatorConfig(device=device))
+    node_ms, root_ms, cycles = [], [], []
+
+    def cycle():
+        for na in tree.node_aggs:
+            t0 = time.perf_counter()
+            na.poll_once()
+            node_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        tree.root_agg.poll_once()
+        root_ms.append((time.perf_counter() - t0) * 1e3)
+        cycles.append((time.monotonic(), {
+            w: int(na.workers[w]["seq"]) for na in tree.node_aggs
+            for w in na.workers}))
+    out.put("ready")
+    while not stop.is_set():
+        cycle()
+        time.sleep(0.01)
+    cycle()
+    cycle()
+    dev_ms, host_ms, np_ms = [], [], []
+    for s in stacks:
+        if device != "cpu":
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ev[0].record()
+        t0 = time.perf_counter()
+        got = fold(s, device)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        if device != "cpu":
+            ev[1].record()
+            torch.cuda.synchronize()
+            dev_ms.append(ev[0].elapsed_time(ev[1]))
+        t0 = time.perf_counter()
+        want = M.n_group_summary_fold_multi(s)
+        np_ms.append((time.perf_counter() - t0) * 1e3)
+        if any(not np.array_equal(got[n][f], want[n][f])
+               for n in want for f in want[n]):
+            out.put({"error": "a device fold differs from the numpy twin"})
+            return
+    out.put({"node_ms": node_ms, "root_ms": root_ms, "cycles": cycles,
+             "nodes": [na.node_id for na in tree.node_aggs],
+             "fold_device_ms": dev_ms, "fold_host_ms": host_ms,
+             "fold_numpy_ms": np_ms, "folds_timed": len(stacks)})
+
+
+def mirror_root(root: str, twin: str) -> str:
+    """A root over the same worker regions (meta, programs and workers are
+    links) with a global view and node registry of its own."""
+    import os
+    os.makedirs(twin)
+    for name in ("meta.json", "progs", "workers"):
+        os.symlink(os.path.join(root, name), os.path.join(twin, name))
+    return twin
+
+
+def view_states(root: str) -> dict:
+    from repro_torch.core import shm as SH
+    g = SH.GlobalView.attach(root)
+    return {s.name: g.snapshot(s.name) for s in SH.read_meta_specs(root)}
+
+
+def views_differ(a: dict, b: dict) -> list:
+    return [f"{m}.{f}" for m in b for f in b[m]
+            if m not in a or f not in a[m] or a[m][f].shape != b[m][f].shape
+            or not (a[m][f] == b[m][f]).all()]
+
+
+def flat_oracle(root: str, wids) -> dict:
+    """The global view the plane must publish, from every worker's final
+    published maps folded by the numpy twins: summary fields summed, HASH
+    items summed and laid out canonically, ring records interleaved by
+    (step, worker, position)."""
+    import numpy as np
+    from repro_torch.core import maps as M, shm as SH
+    specs = SH.read_meta_specs(root)
+    snaps = {w: {s.name: SH.ShmRegion.attach(root, mode="r", worker_id=w)
+                 .snapshot_device(s.name) for s in specs} for w in wids}
+    out = {}
+    for spec in specs:
+        sts = [snaps[w][spec.name] for w in wids]
+        if M.is_summary_kind(spec.kind):
+            with np.errstate(over="ignore"):
+                out[spec.name] = {f: np.sum([st[f] for st in sts], axis=0,
+                                            dtype=np.int64)
+                                  for f in M.SUMMARY_FIELDS[spec.kind]}
+        elif spec.kind == M.MapKind.HASH:
+            items: dict = {}
+            for st in sts:
+                for k, v in M.n_hash_items(st).items():
+                    items[k] = int(np.int64(items.get(k, 0) + v))
+            out[spec.name] = M.n_hash_canonical(spec, items)
+        else:
+            tagged, total = [], 0
+            for w, st in zip(wids, sts):
+                t, head = M.n_ringbuf_tagged(
+                    st, w, step_lane=spec.flags.get("step_lane"))
+                tagged += t
+                total += head
+            out[spec.name] = M.ringbuf_merge_global(spec, tagged, total)
+    return out, snaps
+
+
+def _cli(argv) -> tuple[int, str]:
+    import contextlib
+    import io
+    from repro_torch.core import daemon as D
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = D.main(argv)
+    return rc, buf.getvalue()
+
+
+def fleet_tree(torch, ops, cfg, tmp, device="cuda", rounds=4, per_turn=4):
+    """(a): four serving workers w000-w003 on the card, each with phase 6's
+    runtime (phase 3's probes, the live lane), sharing one set of phase 3's
+    weights and taking turns of `per_turn` requests; a spawned process runs
+    the tree aggregator while they serve. After w000's turn of round 2 the
+    daemon CLI queues an attach of LIVE_PROBES[0] on w001 and w002, after
+    w000's turn of round 3 the matching detach."""
+    import multiprocessing as mp
+    import os
+    import queue
+    from repro_torch.core import daemon as D, loader, maps as M, shm as SH
+    from repro_torch.core.maps import MapKind, MapSpec
+    from repro_torch.core.runtime import to_numpy
+    from repro_torch.launch import serve as L
+    from repro_torch.models import registry as MR
+    from repro_torch.serve.engine import ServeEngine
+    root = os.path.join(tmp, "fleet")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    params = MR.init_params(cfg, gen, device)
+    engines, steps, pubs, applied = {}, {w: [] for w in FLEET_WIDS}, [], {}
+    part, mark = [1], {}
+    for i, wid in enumerate(FLEET_WIDS):
+        rt, _ = _live_runtime("table")
+        eng = ServeEngine(params, cfg, slots=4, max_seq=128, runtime=rt,
+                          shm_dir=root, worker_id=wid, device=device)
+        stage, publish, poll = rt.probe_stage, rt.publish, rt.poll_control
+
+        def recording(rows, maps, aux, mode=None, _s=stage, _w=wid):
+            out = _s(rows, maps, aux, mode=mode)
+            steps[_w].append((part[0], rows, {
+                k: v for k, v in maps.items() if k != "__live_table__"},
+                aux, out[0]))
+            if _w == "w001" and "queued" in mark and \
+                    "first_run" not in mark:
+                if device != "cpu":
+                    torch.cuda.synchronize()
+                mark["first_run"] = time.perf_counter()
+            return out
+
+        def timed_publish(maps, _p=publish, _rt=rt, _w=wid):
+            _p(maps)
+            pubs.append((time.monotonic(), _w, int(_rt.shm.seq.max())))
+
+        def recording_poll(_p=poll, _w=wid):
+            got = _p()
+            applied.setdefault(_w, []).extend(got)
+            return got
+        rt.probe_stage, rt.publish, rt.poll_control = (
+            recording, timed_publish, recording_poll)
+        engines[wid] = (eng, eng._decode,
+                        L.make_requests(rounds * per_turn, 8,
+                                        cfg.vocab_size, SEED + 10 + i))
+    name, text, (mname, kind, n, w), target = L.LIVE_PROBES[0]
+    obj = loader.build_object(name, text, [MapSpec(mname, MapKind(kind), n,
+                                                   rec_width=w)],
+                              "uprobe", attach_to=target)
+    obj_path = os.path.join(tmp, f"{name}.json")
+    with open(obj_path, "w") as fh:
+        fh.write(obj.to_json())
+    ctx = mp.get_context("spawn")
+    stop, out_q = ctx.Event(), ctx.Queue()
+    agg = ctx.Process(target=tree_aggregator, args=(
+        str(SRC), root, list(FLEET_WIDS), device, stop, out_q))
+    agg.start()
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    cli = [sys.executable, "-m", "repro_torch.core.daemon", root]
+    workers = " ".join(f"--worker {w}" for w in ATTACHED).split()
+    try:
+        if out_q.get(timeout=300) != "ready":
+            fail("phase 10: the aggregator process did not start")
+        if device != "cpu":
+            torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t_serve = time.perf_counter()
+        for r in range(rounds):
+            for wid in FLEET_WIDS:
+                eng, _, reqs = engines[wid]
+                eng.submit_all(reqs[r * per_turn:(r + 1) * per_turn])
+                if wid != "w000" or r not in (1, 2):
+                    continue
+                if r == 1:
+                    t0 = time.perf_counter()
+                    res = subprocess.run(
+                        cli + ["attach", obj_path, "--mode", "table",
+                               "--no-promote"] + workers, env=env,
+                        capture_output=True, text=True, timeout=300)
+                    mark["queued"] = time.perf_counter()
+                    mark["cli_attach_s"] = mark["queued"] - t0
+                    part[0] = 2
+                else:
+                    lids = set()
+                    for a in ATTACHED:
+                        st = SH.ShmRegion.attach(root, worker_id=a) \
+                            .read_status()
+                        lids |= {k for k, v in st["promotions"].items()
+                                 if v["lane"] == "table"}
+                    if len(lids) != 1:
+                        fail(f"phase 10: w001/w002 report table links "
+                             f"{sorted(lids)}")
+                    res = subprocess.run(
+                        cli + ["detach", lids.pop()] + workers, env=env,
+                        capture_output=True, text=True, timeout=300)
+                    part[0] = 3
+                if res.returncode != 0:
+                    fail(f"phase 10: the daemon CLI exited {res.returncode}:"
+                         f" {res.stderr.strip()[-400:]}")
+        if device != "cpu":
+            torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t_serve
+        launches = ops.launch_counts()
+        # each worker publishes its unchanged maps once more (what an idle
+        # worker's heartbeat does), then the aggregator's two last cycles
+        for wid in FLEET_WIDS:
+            eng = engines[wid][0]
+            eng.runtime.publish(eng.maps)
+        stop.set()
+        got = out_q.get(timeout=300)
+    finally:
+        stop.set()
+        agg.join(timeout=60)
+        if agg.is_alive():
+            agg.kill()
+            agg.join()
+    if not isinstance(got, dict) or "error" in got or agg.exitcode != 0:
+        fail(f"phase 10: the aggregator process gave {got!r} "
+             f"(exit code {agg.exitcode})")
+    # ---- what the workers did
+    probed = {w: {k: sum(1 for s in steps[w] if s[0] == k) for k in (1, 2, 3)}
+              for w in FLEET_WIDS}
+    for wid in FLEET_WIDS:
+        eng, decode, _ = engines[wid]
+        rt = eng.runtime
+        del rt.probe_stage, rt.publish, rt.poll_control
+        if eng._decode is not decode:
+            fail(f"phase 10: {wid}'s decode step was rebuilt")
+        ops_ = [(a["op"], a.get("error")) for a in applied.get(wid, [])]
+        want = ([("load_attach", None), ("detach", None)]
+                if wid in ATTACHED else [])
+        if ops_ != want:
+            fail(f"phase 10: {wid} applied control requests {ops_}")
+        if wid in ATTACHED and not probed[wid][2]:
+            fail(f"phase 10: {wid} ran no probed step while attached "
+                 f"({probed[wid]})")
+        for k, rows, maps_in, aux, out in steps[wid]:
+            moved = int(out[mname]["values"].sum()
+                        - maps_in[mname]["values"].sum())
+            if moved != (cfg.num_layers if wid in ATTACHED and k == 2
+                         else 0):
+                fail(f"phase 10: {wid} part {k}: {name} counted {moved}")
+    n_probed = sum(len(s) for s in steps.values())
+    if launches["table_interp"] != n_probed:
+        fail(f"phase 10: {launches['table_interp']} interpreter launches "
+             f"for {n_probed} probed steps")
+    if any(launches[k] == 0 for k in ("tensor_stats", "hash_fetch_add_batch",
+                                      "ringbuf_emit_batch")):
+        fail(f"phase 10: a serving kernel was not launched: {launches}")
+    for wid in ATTACHED:
+        rf, fp = _live_runtime(None)
+        link, detached = None, False
+        for k, rows, maps_in, aux, out in steps[wid]:
+            if k == 2 and link is None and not detached:
+                link = rf.attach(fp[name], target, mode="fused")
+            if k == 3 and link is not None:
+                rf.detach(link)
+                link, detached = None, True
+            want, _ = rf.probe_stage(rows, maps_in, aux)
+            bad = _same_maps(out, want)
+            if bad:
+                fail(f"phase 10: {wid} part {k}: {bad} differ from the "
+                     "fused-lane replay")
+    # ---- what the aggregator published
+    oracle, snaps = flat_oracle(root, FLEET_WIDS)
+    for wid in FLEET_WIDS:
+        final = to_numpy(engines[wid][0].maps)
+        bad = views_differ(snaps[wid], final)
+        if bad:
+            fail(f"phase 10: {wid}'s published {bad} differ from its maps")
+    tree_view = view_states(root)
+    bad = views_differ(tree_view, oracle)
+    if bad:
+        fail(f"phase 10: the tree's global {bad} differ from the flat oracle")
+    flat = D.Aggregator(mirror_root(root, os.path.join(tmp, "flat")),
+                        config=D.AggregatorConfig(device_fold=False))
+    flat.poll_once()
+    bad = views_differ(view_states(flat.root), tree_view)
+    if bad:
+        fail(f"phase 10: a flat aggregator's {bad} differ from the tree's")
+    rc, txt = _cli([root, "fleet", "health", "--json"])
+    health = json.loads(txt)
+    states = {w: health["health"].get(w, {}).get("state")
+              for w in FLEET_WIDS}
+    if rc != 0 or set(states.values()) != {D.HEALTHY} or \
+            sorted(health["nodes"]) != ["n0_0", "n0_1"] or \
+            any(health["stream_lost"].values()) or \
+            any(health["hash_dropped"].values()):
+        fail(f"phase 10: fleet health: workers {states}, nodes "
+             f"{sorted(health['nodes'])}, stream_lost "
+             f"{health['stream_lost']}, hash_dropped "
+             f"{health['hash_dropped']}")
+    hname = next(s.name for s in SH.read_meta_specs(root)
+                 if s.kind == MapKind.HASH)
+    rc, txt = _cli([root, "map", "dump", hname, "--json"])
+    (doc,) = json.loads(txt)
+    if rc != 0 or any(doc[f] != tree_view[hname][f].tolist()
+                      for f in tree_view[hname]):
+        fail(f"phase 10: map dump {hname} differs from the global view")
+    # ---- times
+    lat = []
+    for t_pub, wid, seq in pubs:
+        t_in = next((t for t, seen in got["cycles"]
+                     if seen.get(wid, -1) >= seq), None)
+        if t_in is not None:
+            lat.append((t_in - t_pub) * 1e3)
+    to_run_ms = (mark["first_run"] - mark["queued"]) * 1e3
+    res = {"workers": list(FLEET_WIDS), "probed_steps": probed,
+           "decode_steps": {w: engines[w][0].step_count for w in FLEET_WIDS},
+           "serve_s": serve_s, "publishes": len(pubs),
+           "tree_cycles": len(got["cycles"]), "nodes": got["nodes"],
+           "node_cycle_host_ms_median": _pct(got["node_ms"], 0.5),
+           "node_cycle_host_ms_p90": _pct(got["node_ms"], 0.9),
+           "root_cycle_host_ms_median": _pct(got["root_ms"], 0.5),
+           "root_cycle_host_ms_p90": _pct(got["root_ms"], 0.9),
+           "fold_device_ms_median": _pct(got["fold_device_ms"], 0.5),
+           "fold_host_ms_median": _pct(got["fold_host_ms"], 0.5),
+           "fold_numpy_ms_median": _pct(got["fold_numpy_ms"], 0.5),
+           "folds_timed": got["folds_timed"],
+           "publish_to_root_ms_median": _pct(lat, 0.5),
+           "publish_to_root_ms_p90": _pct(lat, 0.9),
+           "publishes_seen": len(lat),
+           "cli_attach_process_s": mark["cli_attach_s"],
+           "cli_queue_to_first_run_ms": to_run_ms,
+           "launches": launches}
+    print(f"  4 workers served {res['decode_steps']} decode steps in "
+          f"{serve_s:.1f} s ({probed} probed per part); {len(pubs)} "
+          f"publishes, {len(got['cycles'])} tree cycles; node cycle "
+          f"{res['node_cycle_host_ms_median']:.2f} ms median, "
+          f"{res['node_cycle_host_ms_p90']:.2f} p90; root cycle "
+          f"{res['root_cycle_host_ms_median']:.2f} / "
+          f"{res['root_cycle_host_ms_p90']:.2f} ms of host", flush=True)
+    print(f"  node fold on the card {res['fold_device_ms_median']:.3f} ms "
+          f"(CUDA events; {res['fold_host_ms_median']:.3f} ms of host), "
+          f"numpy twin {res['fold_numpy_ms_median']:.3f} ms, on the same "
+          f"{got['folds_timed']} stacks; publish to the first root view "
+          f"that holds it {res['publish_to_root_ms_median']:.1f} ms median, "
+          f"{res['publish_to_root_ms_p90']:.1f} p90; CLI attach process "
+          f"{mark['cli_attach_s']:.2f} s, queued to w001's first run "
+          f"{to_run_ms:.1f} ms", flush=True)
+    print(f"  tree view = flat oracle = flat Aggregator(device_fold=False); "
+          f"fleet health: 4 HEALTHY, nodes {sorted(health['nodes'])}; "
+          f"{name} counted on w001/w002 while attached only; replays "
+          f"bit-identical; kernels {json.dumps(launches)}", flush=True)
+    return res
+
+
+def fleet_scale(tmp, device="cuda", n_workers=64, fan_in=8, rounds=7,
+                events=384):
+    """(b): 64 worker regions written from one seeded generator with
+    benchmarks/probe_pipeline.py's fleet-scale specs and schedule, folded
+    round by round by a tree on `device`, the same tree with the numpy
+    twins and the flat aggregator, each over the same regions."""
+    import os
+    import numpy as np
+    from repro_torch.core import daemon as D, maps as M, shm as SH
+    from repro_torch.core.treeagg import TreeAggregator
+    specs = [M.MapSpec("fs_arr", M.MapKind.ARRAY, max_entries=128),
+             M.MapSpec("fs_hash", M.MapKind.HASH, max_entries=256),
+             M.MapSpec("fs_hist", M.MapKind.LOG2HIST)]
+    per_kind = events // 3
+    root = os.path.join(tmp, "scale")
+    wids = [f"w{w:03d}" for w in range(n_workers)]
+    regions = [SH.ShmRegion.create(root, specs, worker_id=w) for w in wids]
+    states = [M.init_states_np(specs) for _ in wids]
+    rng = np.random.default_rng(11)
+    dev = TreeAggregator(root, fan_in=fan_in, depth=1, worker_ids=wids,
+                         config=D.AggregatorConfig(device=device))
+    host = TreeAggregator(mirror_root(root, os.path.join(tmp, "scale_np")),
+                          fan_in=fan_in, depth=1, worker_ids=wids,
+                          config=D.AggregatorConfig(device_fold=False))
+    flat = D.Aggregator(mirror_root(root, os.path.join(tmp, "scale_flat")),
+                        config=D.AggregatorConfig(device_fold=False))
+
+    def apply_round():
+        for st, region in zip(states, regions):
+            np.add.at(st["fs_arr"]["values"], rng.integers(0, 128, per_kind),
+                      1)
+            M.n_hash_fetch_add_batch(
+                st["fs_hash"], rng.integers(0, 64, per_kind).astype(np.int64),
+                np.ones(per_kind, np.int64))
+            np.add.at(st["fs_hist"]["bins"], rng.integers(0, 64, per_kind), 1)
+            region.publish_device(st)
+    ms = {"node": [], "root": [], "flat": [], "node_numpy": []}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        fn()
+        ms[key].append((time.perf_counter() - t0) * 1e3)
+    for agg in (dev, host, flat):
+        agg.poll_once()
+    for r in range(rounds + 1):             # round 0 warms the folds
+        apply_round()
+        for na in dev.node_aggs:
+            timed("node", na.poll_once)
+        timed("root", dev.root_agg.poll_once)
+        for na in host.node_aggs:
+            timed("node_numpy", na.poll_once)
+        host.root_agg.poll_once()
+        timed("flat", flat.poll_once)
+        if r == 0:
+            for v in ms.values():
+                v.clear()
+    views = [view_states(a.root) for a in (dev.root_agg, host.root_agg,
+                                           flat)]
+    for what, v in (("numpy-fold tree", views[1]), ("flat", views[2])):
+        bad = views_differ(views[0], v)
+        if bad:
+            fail(f"phase 10: the tree's {bad} differ from the {what} view")
+    med = {k: _pct(v, 0.5) for k, v in ms.items()}
+    per_round = n_workers * 3 * per_kind
+    eps = per_round / (max(med["node"], med["root"]) / 1e3)
+    print(f"  {n_workers} workers x {3 * per_kind} events x {rounds} rounds: "
+          f"median ms per node cycle {med['node']:.2f} (numpy fold "
+          f"{med['node_numpy']:.2f}), root {med['root']:.2f}, flat "
+          f"{med['flat']:.2f}; slowest tree stage "
+          f"{eps:.0f} events/s, flat {per_round / (med['flat'] / 1e3):.0f}; "
+          "tree = numpy-fold tree = flat, bit for bit", flush=True)
+    return {"workers": n_workers, "fan_in": fan_in, "rounds": rounds,
+            "events_per_round": per_round,
+            **{f"{k}_cycle_ms_median": v for k, v in med.items()},
+            "tree_events_per_s_slowest_stage": eps,
+            "flat_events_per_s": per_round / (med["flat"] / 1e3)}
+
+
+def fuzz_on_card(ops, device="cuda", seeds=100, budget_s=30.0):
+    """(c): the port's fuzz harness over seeds 0-99 (and more seeds while
+    less than `budget_s` has passed) at 6 events, every lane on `device`,
+    and every corpus case."""
+    from collections import Counter
+    from repro_torch.core import fuzz as F
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    lanes, cases, accepted, seed = Counter(), 0, 0, 0
+    while seed < seeds or time.perf_counter() - t0 < budget_s:
+        r = F.run_case(F.generate_case(seed, events=6), device)
+        if r.diverged:
+            fail(f"phase 10: fuzz seed {seed}: "
+                 f"{r.crashed or '; '.join(r.mismatches[:3])}")
+        cases += 1
+        accepted += r.accepted
+        lanes.update(r.lanes)
+        seed += 1
+    corpus = sorted((ROOT / "tests" / "corpus").glob("*.json"))
+    for p in corpus:
+        d = json.loads(p.read_text())
+        r = F.run_case(F.FuzzCase.from_json(d), device)
+        if not r.accepted or r.diverged or r.lanes != d["lanes"]:
+            fail(f"phase 10: corpus {p.name}: lanes {r.lanes} (pinned "
+                 f"{d['lanes']}), {r.rejected or r.crashed or r.mismatches}")
+        lanes.update(r.lanes)
+    secs = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    print(f"  fuzz seeds 0-{seed - 1}: {cases} cases, {accepted} accepted, "
+          f"no mismatch; corpus {len(corpus)} replayed; lanes "
+          f"{json.dumps(dict(sorted(lanes.items())))}; interpreter launches "
+          f"{launches['table_interp']}; {secs:.1f} s "
+          f"({secs / (cases + len(corpus)):.3f} s a case)", flush=True)
+    return {"seeds": [0, seed - 1], "cases": cases, "accepted": accepted,
+            "corpus": len(corpus), "lanes": dict(lanes), "seconds": secs,
+            "s_per_case": secs / (cases + len(corpus)), "launches": launches}
+
+
 def card_line() -> str:
     """The card's name and power limit as nvidia-smi prints them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2360,6 +2909,28 @@ def main(argv=None):
                  for part in ("int8", "ckpt")) + fleet["launches"][k]
           for k in fleet["launches"]}
 
+    # ---- phase 10
+    print("phase 10: the fleet aggregator and the grammar fuzzer: four "
+          "serving workers folded by a tree on the card, the daemon CLI's "
+          "attach and detach; 64 worker regions, tree against flat; the "
+          "fuzz harness's lanes on the card", flush=True)
+    t10 = time.perf_counter()
+    tmp = scratch_dir(1 << 30, "phase 10")
+    try:
+        aggregator = fleet_tree(torch, ops, cfg, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print("  (b) 64 worker regions folded by a tree of fan-in 8",
+              flush=True)
+        aggregator["scale"] = fleet_scale(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    fuzz = fuzz_on_card(ops)
+    aggregator["phase_s"] = time.perf_counter() - t10
+    print(f"  phase 10 took {aggregator['phase_s']:.1f} s", flush=True)
+    p10 = {k: aggregator["launches"][k] + fuzz["launches"][k]
+           for k in aggregator["launches"]}
+
     # ---- report
     def pick(rows_, key, val):
         return next(r for r in rows_ if r[key] == val)
@@ -2379,7 +2950,8 @@ def main(argv=None):
                 "bound_by": row["bound_by"],
                 "library_ms": row.get("library_ms"),
                 "library_is": row.get("library_is"),
-                "phase9_launches": p9[name], "shapes": shapes}
+                "phase9_launches": p9[name], "phase10_launches": p10[name],
+                "shapes": shapes}
 
     report = {"kernels": [
         entry("tensor_stats", "tensor_stats.cu",
@@ -2406,7 +2978,8 @@ def main(argv=None):
                  "tokens_per_s": tokens / wall, "events": engine_events,
                  **times},
         "live": live,
-        "train": train, "fleet": fleet, "train_launches_of_serving_kernels": {
+        "train": train, "fleet": fleet, "aggregator": aggregator,
+        "fuzz": fuzz, "train_launches_of_serving_kernels": {
             k: tl[k] for k in serving_kernels},
         "flash_sm90_build": sm90_build, "probe_build": probe_build}
     print(json.dumps(report), flush=True)

@@ -505,3 +505,334 @@ def n_hash_fetch_add_batch(st, keys, deltas, ok=None) -> None:
             st["used"][tgt] = 1
             st["values"][tgt] = _to_i64(old + d)
         pending &= ~group
+
+
+# --------------------------------------------------------------------------
+# interprocess merge plane (DESIGN.md §10): per-kind DELTA extraction and
+# COMMUTATIVE merge twins. Worker processes publish cumulative seqlocked
+# snapshots; the aggregation engine extracts per-cycle deltas against its
+# last-seen baseline and folds them into one global view. Merges commute
+# across workers for the ops the differential harness admits:
+#   * ARRAY / PERCPU_ARRAY / LOG2HIST -- element-wise delta-sum (adds
+#     commute unconditionally);
+#   * HASH -- content delta over probe-REACHABLE entries, merged by the
+#     batched first-occurrence machinery of n_hash_fetch_add_batch; per-key
+#     sums commute, and non-commutative ops (update/delete) commute across
+#     workers iff each key is owned by one worker -- the sharded-aggregation
+#     contract;
+#   * RINGBUF -- records are tagged (step, wid, seq) and interleaved by that
+#     key; the global order is a deterministic merge-sort of per-worker
+#     streams, with dropped counts derived from the global head.
+# The torch twins (t_summary_*, t_hash_coalesce, t_group_summary_fold*) run
+# the node-level folds on a device; they return host arrays bit for bit the
+# numpy twins'.
+# --------------------------------------------------------------------------
+
+SUMMARY_FIELDS = {
+    MapKind.ARRAY: ("values",),
+    MapKind.PERCPU_ARRAY: ("values",),
+    MapKind.LOG2HIST: ("bins",),
+}
+
+
+def is_summary_kind(kind: MapKind) -> bool:
+    return kind in SUMMARY_FIELDS
+
+
+def n_summary_delta(spec: MapSpec, cur: dict, base: dict) -> dict:
+    """Element-wise delta of two cumulative snapshots (wrapping i64)."""
+    return {f: np.asarray(cur[f], np.int64) - np.asarray(base[f], np.int64)
+            for f in SUMMARY_FIELDS[spec.kind]}
+
+
+def n_summary_merge(spec: MapSpec, acc: dict, delta: dict) -> None:
+    """In-place commutative fold of one delta into the accumulator."""
+    for f in SUMMARY_FIELDS[spec.kind]:
+        acc[f] += delta[f]
+
+
+def _on(a, dev) -> torch.Tensor:
+    return torch.as_tensor(a, dtype=I64, device=dev)
+
+
+def t_summary_delta(spec: MapSpec, cur: dict, base: dict,
+                    device="cuda") -> dict:
+    """torch twin of n_summary_delta: int64 tensors on `device`."""
+    from ..device import resolve
+    dev = resolve(device)
+    return {f: _on(cur[f], dev) - _on(base[f], dev)
+            for f in SUMMARY_FIELDS[spec.kind]}
+
+
+def t_summary_merge(spec: MapSpec, acc: dict, delta: dict,
+                    device="cuda") -> dict:
+    """torch twin of n_summary_merge, functional: new tensors on
+    `device`; the accumulator is not written."""
+    from ..device import resolve
+    dev = resolve(device)
+    return {f: _on(acc[f], dev) + _on(delta[f], dev)
+            for f in SUMMARY_FIELDS[spec.kind]}
+
+
+def n_hash_delta(cur_items: dict, base_items: dict
+                 ) -> tuple[list[tuple[int, int]], list[int]]:
+    """Content delta between two cumulative snapshots of one worker's hash
+    map: (adds, dels). adds = (key, value-delta) for new or changed keys
+    (new keys are included even at delta 0 so inserts propagate); dels =
+    keys the worker deleted since the baseline. Sorted by key so a given
+    (cur, base) pair always yields the same batch."""
+    adds = []
+    for k in sorted(cur_items):
+        d = cur_items[k] - base_items.get(k, 0)
+        if d != 0 or k not in base_items:
+            adds.append((k, d))
+    dels = sorted(k for k in base_items if k not in cur_items)
+    return adds, dels
+
+
+def n_hash_canonical(spec: MapSpec, items: dict) -> dict:
+    """Deterministic table layout for a given content: rebuild by inserting
+    keys in sorted order. Published global hash maps use this form, so the
+    merged view is bit-stable regardless of worker poll order; the
+    differential harness compares it against the canonicalized oracle."""
+    st = init_state_np(spec)
+    for k in sorted(items):
+        n_hash_update(st, k, items[k])
+    return st
+
+
+# ---- ringbuf: tagged drain + deterministic global interleave
+
+def n_ringbuf_tagged(st, wid, lo: int = 0, step_lane: int | None = None
+                     ) -> tuple[list[tuple[tuple, np.ndarray]], int]:
+    """Drain retained records with monotonic position >= lo, each tagged
+    with its global interleave key (step, wid, seq): seq is the record's
+    position in this worker's stream; step comes from the record lane the
+    map spec designates (flags={'step_lane': k}), else 0 -- reducing the
+    interleave to concatenation by wid."""
+    cap = st["data"].shape[0]
+    head = int(st["head"][0])
+    start = max(lo, head - cap)
+    out = []
+    for i in range(start, head):
+        rec = np.array(st["data"][i % cap])
+        step = int(rec[step_lane]) if step_lane is not None else 0
+        out.append(((step, wid, i), rec))
+    return out, head
+
+
+# ---- tree aggregation plane (DESIGN.md §15): vectorized content twins,
+# ---- batched group folds, and hash keyspace sharding
+
+_EMPTY_I64 = np.zeros(0, np.int64)
+
+
+def n_hash_content(st) -> tuple[np.ndarray, np.ndarray]:
+    """Vectorized twin of n_hash_items: the lookup-visible content of a hash
+    table as sorted parallel arrays (keys, values) -- no per-entry Python
+    loop, so a node aggregator can extract its whole group's content at
+    numpy speed. dict(zip(*n_hash_content(st))) == n_hash_items(st)."""
+    kt = np.asarray(st["keys"], np.int64)
+    u = np.asarray(st["used"], np.int64)
+    occupied = u == 1
+    nonempty = u != 0
+    n = kt.shape[0]
+    if not occupied.any():
+        return _EMPTY_I64, _EMPTY_I64
+    j = np.arange(n)
+    start = _np_hash_idx_vec(kt, n)
+    dist = (j - start) % n
+    reach = occupied & (dist < _np_next_free_dist(nonempty)[start])
+    idx = np.nonzero(reach)[0]
+    if idx.size == 0:
+        return _EMPTY_I64, _EMPTY_I64
+    # duplicate keys (broken chains) resolve to the smallest probe
+    # distance, exactly like n_hash_slots' sequential scan
+    order = np.lexsort((dist[idx], kt[idx]))
+    sk = kt[idx][order]
+    first = np.concatenate([[True], sk[1:] != sk[:-1]])
+    sel = idx[order][first]
+    return kt[sel], np.asarray(st["values"], np.int64)[sel]
+
+
+def n_hash_delta_arrays(cur_k: np.ndarray, cur_v: np.ndarray,
+                        base_k: np.ndarray, base_v: np.ndarray
+                        ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Vectorized twin of n_hash_delta over sorted content arrays:
+    (add_keys, add_deltas, del_keys). New keys are included even at delta 0
+    (inserts must propagate); all outputs sorted by key."""
+    cur_k = np.asarray(cur_k, np.int64)
+    base_k = np.asarray(base_k, np.int64)
+    if base_k.size == 0:
+        return cur_k, np.asarray(cur_v, np.int64), _EMPTY_I64
+    pos = np.searchsorted(base_k, cur_k)
+    posc = np.minimum(pos, base_k.size - 1)
+    in_base = (pos < base_k.size) & (base_k[posc] == cur_k)
+    with np.errstate(over="ignore"):
+        d = np.asarray(cur_v, np.int64) - \
+            np.where(in_base, np.asarray(base_v, np.int64)[posc], 0)
+    keep = (d != 0) | ~in_base
+    if cur_k.size == 0:
+        return _EMPTY_I64, _EMPTY_I64, base_k
+    bpos = np.searchsorted(cur_k, base_k)
+    bposc = np.minimum(bpos, cur_k.size - 1)
+    in_cur = (bpos < cur_k.size) & (cur_k[bposc] == base_k)
+    return cur_k[keep], d[keep], base_k[~in_cur]
+
+
+def n_hash_coalesce(keys: np.ndarray, deltas: np.ndarray
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """Commutative coalesce of a fetch-add batch: per-key delta sums, keys
+    sorted. Zero-sum keys are KEPT -- an insert at delta 0 must still
+    propagate up the tree. The numpy twin of t_hash_coalesce."""
+    keys = np.asarray(keys, np.int64)
+    deltas = np.asarray(deltas, np.int64)
+    if keys.size == 0:
+        return _EMPTY_I64, _EMPTY_I64
+    uk, inv = np.unique(keys, return_inverse=True)
+    ud = np.zeros(uk.size, np.int64)
+    with np.errstate(over="ignore"):
+        np.add.at(ud, inv, deltas)
+    return uk, ud
+
+
+def t_hash_coalesce(keys, deltas, device="cuda"
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """Device-side coalesce (sorted unique + int64 segment sum) of a whole
+    worker group's concatenated fetch-add batch. Returns compacted host
+    arrays, bit for bit n_hash_coalesce: keys ascending, zero-sum keys
+    kept, sums wrapping in i64."""
+    from ..device import resolve
+    dev = resolve(device)
+    keys = np.asarray(keys, np.int64)
+    deltas = np.asarray(deltas, np.int64)
+    if keys.size == 0:
+        return _EMPTY_I64, _EMPTY_I64
+    kd = torch.from_numpy(np.stack([keys, deltas])).to(dev)
+    uk, inv = torch.unique(kd[0], sorted=True, return_inverse=True)
+    sums = torch.zeros(uk.shape[0], dtype=I64, device=dev)
+    sums.index_add_(0, inv, kd[1])
+    out = torch.cat([uk, sums]).cpu().numpy()
+    return out[:uk.shape[0]], out[uk.shape[0]:]
+
+
+def n_group_summary_fold(spec: MapSpec, acc: dict, cur_stack: dict,
+                         base_stack: dict) -> dict:
+    """numpy twin of t_group_summary_fold (wrapping i64)."""
+    out = {}
+    for f in SUMMARY_FIELDS[spec.kind]:
+        with np.errstate(over="ignore"):
+            out[f] = acc[f] + np.sum(
+                np.asarray(cur_stack[f], np.int64)
+                - np.asarray(base_stack[f], np.int64), axis=0)
+    return out
+
+
+def n_group_summary_fold_multi(stacks: dict) -> dict:
+    """numpy twin of t_group_summary_fold_multi (wrapping i64)."""
+    out: dict = {}
+    for n, d in stacks.items():
+        out[n] = {}
+        for f, (acc, cur, base) in d.items():
+            with np.errstate(over="ignore"):
+                out[n][f] = np.asarray(acc, np.int64) + np.sum(
+                    np.asarray(cur, np.int64)
+                    - np.asarray(base, np.int64), axis=0)
+    return out
+
+
+def t_group_summary_fold_multi(stacks: dict, device="cuda") -> dict:
+    """ONE device pass folds every summary spec's worker-group delta:
+    stacks[name][field] = (acc, cur_stack, base_stack) with (W, *shape)
+    stacks. Every leaf is packed into one int64 host buffer -- per group
+    size W a [1 + 2W, N] block: row 0 the accumulators, rows 1..W the
+    current snapshots, rows W+1..2W the baselines, leaves side by side --
+    copied to the device once, folded as acc + sum_w(cur - base), and
+    copied back once. Returns {name: {field: host array}}, bit for bit
+    n_group_summary_fold_multi."""
+    from ..device import resolve
+    dev = resolve(device)
+    groups: dict[int, list] = {}
+    for n, d in stacks.items():
+        for f, (acc, cur, base) in d.items():
+            cur = np.asarray(cur, np.int64)
+            groups.setdefault(cur.shape[0], []).append(
+                (n, f, np.asarray(acc, np.int64), cur,
+                 np.asarray(base, np.int64)))
+    out: dict = {n: {} for n in stacks}
+    if not groups:
+        return out
+    blocks, layout, col = [], [], 0
+    for w, grp in groups.items():
+        blk = np.empty((1 + 2 * w, sum(g[2].size for g in grp)), np.int64)
+        c = 0
+        for n, f, acc, cur, base in grp:
+            k = acc.size
+            blk[0, c:c + k] = acc.reshape(-1)
+            blk[1:1 + w, c:c + k] = cur.reshape(w, k)
+            blk[1 + w:, c:c + k] = base.reshape(w, k)
+            layout.append((n, f, acc.shape, col + c, k))
+            c += k
+        blocks.append(blk)
+        col += c
+    packed = torch.from_numpy(np.concatenate(
+        [b.reshape(-1) for b in blocks])).to(dev)
+    folded, start = [], 0
+    for blk in blocks:
+        p = packed[start:start + blk.size].view(blk.shape)
+        w = (blk.shape[0] - 1) // 2
+        folded.append(p[0] + (p[1:1 + w] - p[1 + w:]).sum(0))
+        start += blk.size
+    host = torch.cat(folded).cpu().numpy()
+    for n, f, shape, c, k in layout:
+        out[n][f] = host[c:c + k].reshape(shape)
+    return out
+
+
+def t_group_summary_fold(spec: MapSpec, acc: dict, cur_stack: dict,
+                         base_stack: dict, device="cuda") -> dict:
+    """torch twin of n_group_summary_fold: acc[f] + sum_w(cur[w][f] -
+    base[w][f]) in one device pass; returns host arrays."""
+    return t_group_summary_fold_multi(
+        {spec.name: {f: (acc[f], cur_stack[f], base_stack[f])
+                     for f in SUMMARY_FIELDS[spec.kind]}}, device)[spec.name]
+
+
+def n_shard_of_keys(keys: np.ndarray, n: int, n_shards: int) -> np.ndarray:
+    """Keyspace partition for sharded global views: a key's shard is its
+    home slot (the same splitmix64 probe start every lookup uses) mod the
+    shard count -- every key lands in exactly one shard, and co-homed keys
+    stay together."""
+    keys = np.asarray(keys, np.int64)
+    if keys.size == 0:
+        return _EMPTY_I64
+    return (_np_hash_idx_vec(keys, n) % n_shards).astype(np.int64)
+
+
+def n_shard_of_key(key: int, n: int, n_shards: int) -> int:
+    return _np_hash_idx(key, n) % n_shards
+
+
+def ringbuf_merge_global(spec: MapSpec, tagged: list, total: int) -> dict:
+    """Build the global ringbuf state from every worker's retained tagged
+    records. The merged order sorts by (step, wid, seq); the global state is
+    exactly what one ring of the same capacity would hold after emitting the
+    merged sequence: data holds the last `cap` records at their global
+    rank mod cap, head counts every emit, dropped counts emits that
+    overwrote an unread record (total - cap, clamped at 0).
+
+    Window argument (DESIGN.md §10): each worker's sort key is monotone in
+    its emit order, so the global tail's restriction to worker w is a suffix
+    of w's stream of length <= cap -- always within what w's own ring still
+    retains. The tail of the retained union therefore IS the global tail."""
+    st = init_state_np(spec)
+    cap = spec.max_entries
+    recs = sorted(tagged, key=lambda t: t[0])
+    tail = recs[-cap:]
+    k = len(tail)
+    for i, (_, rec) in enumerate(tail):
+        rank = total - k + i
+        st["data"][rank % cap, :] = rec
+    st["head"][0] = total
+    st["dropped"][0] = max(0, total - cap)
+    return st

@@ -758,6 +758,9 @@ fleet = {"repro_torch.dist.compression", "repro_torch.ckpt.checkpoint",
          "repro_torch.ft.fault_tolerance", "repro_torch.core.faults",
          "repro_torch.core.shm", "repro_torch.core.artifact_cache"}
 assert fleet <= set(names), fleet - set(names)
+aggregator = {"repro_torch.core.daemon", "repro_torch.core.treeagg",
+              "repro_torch.core.fuzz"}
+assert aggregator <= set(names), aggregator - set(names)
 print(len(names))
 """
     env = dict(os.environ)
@@ -765,4 +768,4 @@ print(len(names))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 68
+    assert int(out.stdout.strip()) >= 71

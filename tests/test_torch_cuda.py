@@ -556,3 +556,87 @@ def test_publish_of_cuda_maps_equals_to_numpy(cuda, tmp_path):
         for f, t in st.items():
             assert torch.equal(torch.from_numpy(got[f]), t.cpu())
             assert (want[name][f] == got[f]).all()
+
+
+def test_node_folds_on_the_card_equal_the_cpu(cuda):
+    """The tree's node folds (t_group_summary_fold_multi, t_hash_coalesce)
+    on the card bit for bit on the CPU and the numpy twins, i64 wrap
+    included."""
+    rng = np.random.default_rng(2)
+    big = 1 << 62
+    stacks = {"a": {"values": (rng.integers(-big, big, 128),
+                               rng.integers(-big, big, (8, 128)),
+                               rng.integers(-big, big, (8, 128)))},
+              "p": {"values": (rng.integers(-9, 9, (2, 8)),
+                               rng.integers(-big, big, (3, 2, 8)),
+                               rng.integers(-big, big, (3, 2, 8)))},
+              "h": {"bins": (rng.integers(-9, 9, 64),
+                             rng.integers(-big, big, (8, 64)),
+                             rng.integers(-big, big, (8, 64)))}}
+    got = M.t_group_summary_fold_multi(stacks, cuda)
+    want = M.t_group_summary_fold_multi(stacks, "cpu")
+    with np.errstate(over="ignore"):
+        twin = M.n_group_summary_fold_multi(stacks)
+    for n in want:
+        for f in want[n]:
+            assert (got[n][f] == want[n][f]).all()
+            assert (got[n][f] == twin[n][f]).all()
+    keys = rng.integers(-300, 300, 4096).astype(np.int64)
+    keys[:2] = (1 << 63) - 1
+    deltas = rng.integers(-big, big, 4096).astype(np.int64) * 2
+    deltas[-3:] = 0
+    for a, b in zip(M.t_hash_coalesce(keys, deltas, cuda),
+                    M.n_hash_coalesce(keys, deltas)):
+        assert a.dtype == b.dtype and (a == b).all()
+
+
+def test_tree_on_the_card_equals_numpy_tree(cuda, tmp_path):
+    """A tree with its node folds on the card and one with the numpy twins
+    fold the same regions into the same view."""
+    import os
+    from repro_torch.core import daemon as D, shm as SH
+    from repro_torch.core.treeagg import TreeAggregator
+    specs = [M.MapSpec("arr", M.MapKind.ARRAY, 16),
+             M.MapSpec("hsh", M.MapKind.HASH, 64),
+             M.MapSpec("hist", M.MapKind.LOG2HIST)]
+    root, twin = str(tmp_path / "card"), str(tmp_path / "np")
+    wids = [f"w{w}" for w in range(6)]
+    regions = [SH.ShmRegion.create(root, specs, worker_id=w) for w in wids]
+    os.makedirs(twin)
+    for name in ("meta.json", "progs", "workers"):
+        os.symlink(os.path.join(root, name), os.path.join(twin, name))
+    on_card = TreeAggregator(root, fan_in=3, worker_ids=wids,
+                             config=D.AggregatorConfig(device=cuda))
+    on_host = TreeAggregator(twin, fan_in=3, worker_ids=wids,
+                             config=D.AggregatorConfig(device_fold=False))
+    states = [M.init_states_np(specs) for _ in wids]
+    rng = np.random.default_rng(4)
+    for _ in range(4):
+        for st, region in zip(states, regions):
+            np.add.at(st["arr"]["values"], rng.integers(0, 16, 40), 1)
+            M.n_hash_fetch_add_batch(st["hsh"], rng.integers(0, 40, 40),
+                                     rng.integers(-5, 6, 40))
+            np.add.at(st["hist"]["bins"], rng.integers(0, 64, 40), 1)
+            region.publish_device(st)
+        on_card.poll_once()
+        on_host.poll_once()
+    a, b = SH.GlobalView.attach(root), SH.GlobalView.attach(twin)
+    for s in specs:
+        ga, gb = a.snapshot(s.name), b.snapshot(s.name)
+        for f in gb:
+            assert (ga[f] == gb[f]).all(), (s.name, f)
+    assert int(a.snapshot("arr")["values"].sum()) == 6 * 4 * 40
+
+
+def test_fuzz_seeds_on_the_card(cuda):
+    """The fuzz harness's seeds 0-19 with every lane on the card: the
+    table and batched lanes launch the interpreter kernel."""
+    from repro_torch.core import fuzz as F
+    ops.reset_launch_counts()
+    lanes = set()
+    for seed in range(20):
+        r = F.run_case(F.generate_case(seed), device=cuda)
+        assert not r.diverged, (seed, r.mismatches or r.crashed)
+        lanes.update(r.lanes)
+    assert {"jit", "table", "batched", "vectorized", "merge1"} <= lanes
+    assert ops.launch_counts()["table_interp"] > 0
