@@ -124,7 +124,27 @@ Phases:
      equal; median ms per node, root and flat cycle. (c) the port's fuzz
      harness over seeds 0-99 and more within 30 s, every lane on the
      card, and every tests/corpus case: no mismatch; cases, lanes by
-     kind, interpreter launches, seconds.
+     kind, interpreter launches, seconds;
+ 11. the MoE, SSM and hybrid families, each model freed before the next:
+     (a) llama4-scout-17b-a16e at full width cut to 4 of its 48 layers
+     (16 experts top-1 and a shared expert in every layer; 10.9 B f32
+     parameters drawn on the card, bf16 compute) served as phase 3 with
+     SERVE_PROBES and MOE_PROBES (17 events a decode step). Fails unless
+     the three serving kernels launched, tensor_stats once per event, the
+     last tape's scan and vectorized replays equal the fused lane, the
+     moe.load histogram holds one load per MoE layer per step, and the
+     route's integer half (top-k, sort, positions, keep, drops) of one
+     decode step's gates and of a 4096-token Zipf batch's (which must
+     drop) is the same on the card and on CPU copies. Prints warm ms per
+     decode step probed and unprobed, the device busy share, device ms in
+     route, experts, combine and router_probes and in dtype casts, and
+     peak memory. (b) mamba2-780m whole (48 layers, 145 events a step)
+     served and checked as (a) with SSM_PROBES, then a 4096-token prefill
+     at batch 1 (16 chunks): host and device ms and the chunk loop's
+     share. (c) llama4-scout, mamba2 and jamba at smoke width (f32, TF32
+     off) on the card and on the CPU from the same weights, even prompts:
+     tokens, maps (bit for bit; the ring buffer's stat lanes within
+     2e-5) and prefill logits (1e-4).
 
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}. Any failure exits
@@ -167,6 +187,9 @@ FLASH_SM90 = ("fwd_kernel", "dkv_kernel", "dq_kernel")
 TRAIN_CMP_TOL = 1e-4
 TRAIN_PARAM_TOL = 3e-5
 SEED = 0
+# the kernels every probed serving step launches
+SERVING_KERNELS = ("tensor_stats", "hash_fetch_add_batch",
+                   "ringbuf_emit_batch")
 
 
 def fail(msg: str):
@@ -916,9 +939,13 @@ def check_flash(torch, FA, ref):
 def serve(torch, cfg, device, params=None, *, requests=8, slots=4,
           max_seq=128, max_new=8, admit_limit=12, probes=True,
           shm_dir=None, worker_id=None):
-    """An engine and its requests. probes=False attaches no device probe;
-    the admission filter (a host-side syscall program) stays, so the same
-    requests are served. shm_dir joins the shm plane as `worker_id`."""
+    """An engine and its requests. probes=True attaches the family's
+    serving probes (launch/serve.family_probes: SERVE_PROBES, plus the MoE
+    and SSM programs where the model has such layers); probes=False
+    attaches no device probe; the admission filter (a host-side syscall
+    program) stays, so the same requests are served. shm_dir joins the shm
+    plane as `worker_id`. Prompts are cut to whole SSD chunks
+    (`whole_chunks`)."""
     from repro_torch.core.runtime import BpftimeRuntime
     from repro_torch.launch import serve as L
     from repro_torch.models import registry as MR
@@ -929,7 +956,7 @@ def serve(torch, cfg, device, params=None, *, requests=8, slots=4,
                       "filter")
     rt.attach(pid, "filter:sys_serve_admit")
     if probes:
-        L.attach_serve_probes(rt)
+        L.attach_serve_probes(rt, L.family_probes(cfg))
     if params is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(SEED)
@@ -938,7 +965,7 @@ def serve(torch, cfg, device, params=None, *, requests=8, slots=4,
                          runtime=rt, shm_dir=shm_dir, worker_id=worker_id,
                          device=device)
     reqs = L.make_requests(requests, max_new, cfg.vocab_size, SEED)
-    return engine, reqs
+    return engine, whole_chunks(cfg, reqs)
 
 
 def to_cpu(tree):
@@ -1001,6 +1028,57 @@ def emit_ranges(torch):
         E.Collector.emit_tensor_event = orig
 
 
+RANGE = "chip_smoke.range."
+
+
+@contextlib.contextmanager
+def ranged_fns(torch, fns):
+    """Each function `getattr(module, name)` of fns {label: (module,
+    name)} called inside a profiler range named RANGE + label while the
+    block runs (callers look the name up in the module at each call)."""
+    saved = {label: getattr(m, n) for label, (m, n) in fns.items()}
+
+    def wrap(label, fn):
+        def ranged(*args, **kwargs):
+            with torch.profiler.record_function(RANGE + label):
+                return fn(*args, **kwargs)
+        return ranged
+    for label, (m, n) in fns.items():
+        setattr(m, n, wrap(label, saved[label]))
+    try:
+        yield
+    finally:
+        for label, (m, n) in fns.items():
+            setattr(m, n, saved[label])
+
+
+def range_times(prof, labels) -> dict:
+    """Per label of `ranged_fns`: its calls, the host ms inside them and
+    the device ms of the kernels they (and the operators under them)
+    launched."""
+    out = {k: {"calls": 0, "host_ms": 0.0, "device_ms": 0.0} for k in labels}
+
+    def kernel_us(e):
+        return sum(k.duration for k in e.kernels) + \
+            sum(kernel_us(c) for c in e.cpu_children)
+    for e in prof.events():
+        if e.name.startswith(RANGE) and str(e.device_type).endswith("CPU"):
+            o = out[e.name[len(RANGE):]]
+            o["calls"] += 1
+            o["host_ms"] += e.cpu_time_total / 1e3
+            o["device_ms"] += kernel_us(e) / 1e3
+    return out
+
+
+def cast_device_ms(prof) -> float:
+    """Device ms of every dtype conversion (aten::_to_copy, with the copy
+    kernels under it) in a profile."""
+    return sum(getattr(e, "device_time_total", 0.0) or
+               getattr(e, "cuda_time_total", 0.0)
+               for e in prof.key_averages()
+               if e.key == "aten::_to_copy") / 1e3
+
+
 def collector_ops(prof) -> dict:
     """Device operations (kernels, copies, fills) the collector launched in
     a profiled window, per event: the tensor_stats kernels (named
@@ -1053,15 +1131,23 @@ def _profile_once(torch, fn):
     return prof, pwall, ops.launch_counts()["tensor_stats"] - before
 
 
-def profiled(torch, fn, groups, detail):
+def profiled(torch, fn, groups, detail, ranges=None):
     """fn() under torch.profiler, every collector event in a range: (wall
     s, device us by group, per-kernel device ms and count of the group
-    `detail`, the collector's device operations). Prints the ten kernels
-    with the most device time. fn must be repeatable: a window whose
+    `detail`, the collector's device operations, and -- with `ranges`,
+    functions for `ranged_fns` -- their `range_times` and the casts' device
+    ms). Prints the ten kernels with the most device time. fn must be
+    repeatable: a window whose
     profile lacks some of the tensor_stats kernels the counter saw
     launched, and holds nothing else that is off, lost activity records,
     and is profiled once more; the check below holds that second window
     as it holds the first."""
+    if ranges:
+        plain = fn
+
+        def fn():
+            with ranged_fns(torch, ranges):
+                plain()
     prof, pwall, launched = _profile_once(torch, fn)
     col = collector_ops(prof)
     if col["events"] == launched and col["stats_kernels"] < launched and \
@@ -1074,8 +1160,9 @@ def profiled(torch, fn, groups, detail):
     by_group = {g: 0.0 for g in list(groups) + ["other"]}
     top, per = [], {}
     for e in prof.key_averages():
-        # an emit range's GPU-side annotation spans kernels counted already
-        if not _is_device(e) or e.key == EMIT_RANGE:
+        # a range's GPU-side annotation spans kernels counted already
+        if not _is_device(e) or e.key == EMIT_RANGE or \
+                e.key.startswith(RANGE):
             continue
         us = _dev_us(e)
         g = next((g for g, keys in groups.items()
@@ -1111,7 +1198,34 @@ def profiled(torch, fn, groups, detail):
         fail("the collector must make exactly one tensor_stats launch and "
              f"no other device operation per event: {ops}, {launched} "
              "launches by the counter")
-    return pwall, by_group, per, ops
+    spans = {}
+    if ranges:
+        spans = {"ranges": range_times(prof, ranges),
+                 "casts_device_ms": cast_device_ms(prof)}
+        print(f"  device ms by function {json.dumps(spans)}", flush=True)
+    return pwall, by_group, per, ops, spans
+
+
+def replay_modes(engine, what):
+    """The engine's last decode tape through the fused, scan and vectorized
+    modes from the maps that step started from: each must end in the map
+    state the engine holds, bit for bit."""
+    from repro_torch.core import jit as J
+    from repro_torch.core.runtime import to_numpy
+    rows, maps_in, step = engine.last_tape
+    final = to_numpy(engine.maps)
+    for mode in ("fused", "scan", "vectorized"):
+        out, _ = engine.runtime.probe_stage(
+            rows, maps_in, J.make_aux(time_ns=step, device=rows.device),
+            mode=mode)
+        st = to_numpy(out)
+        for mname in final:
+            for f in final[mname]:
+                if not (st[mname][f] == final[mname][f]).all():
+                    fail(f"{what}: the {mode} replay's {mname}.{f} differs "
+                         "from the fused lane's")
+    print(f"  last tape of {rows.shape[0]} events: scan, vectorized and "
+          "fused map states bit-identical", flush=True)
 
 
 def warm_serve(torch, cfg, params, probes):
@@ -1126,12 +1240,12 @@ def warm_serve(torch, cfg, params, probes):
         engine.step_count, wall
 
 
-def timing(torch, cfg, params):
+def timing(torch, cfg, params, ranges=None):
     """After one untimed pass, warm serving passes with the probes and with
     no device probe, in turns (host clock), then a profiled one: device
     busy share, device time by kernel group, device operations per
-    collected event. Kernel launches here are not counted toward phase
-    3."""
+    collected event (and the device time of `ranges`, see `profiled`).
+    Kernel launches here are not counted toward the phase's path."""
     warm_serve(torch, cfg, params, True)
     runs = {"probed": [], "unprobed": []}
     for probes in (True, False, False, True):
@@ -1150,11 +1264,13 @@ def timing(torch, cfg, params):
     from repro_torch.launch import serve as L
     engine, _ = serve(torch, cfg, "cuda", params)
     torch.cuda.synchronize()
-    pwall, by_group, probe, ops = profiled(
-        torch, lambda: engine.submit_all(L.make_requests(
-            8, 8, cfg.vocab_size, SEED)), PROBE_GROUPS, "probe kernels")
+    pwall, by_group, probe, ops, spans = profiled(
+        torch, lambda: engine.submit_all(whole_chunks(cfg, L.make_requests(
+            8, 8, cfg.vocab_size, SEED))), PROBE_GROUPS, "probe kernels",
+        ranges)
     busy = sum(by_group.values())
     return {"warm_tokens_per_s": out["probed"]["tokens_per_s"][0],
+            "profiled_decode_steps": engine.step_count, **spans,
             "warm_ms_per_step": out["probed"]["ms_per_step"][0],
             "warm": out,
             "profiled_wall_ms": pwall * 1e3, "device_busy_ms": busy / 1e3,
@@ -1619,7 +1735,7 @@ def train_profile(torch, cfg, state, rt, seq=4096, batch=4, microbatch=2):
     groups = {"flash kernels": ("flash_",) + tuple(f"sm90::{k}"
                                                    for k in FLASH_SM90),
               **PROBE_GROUPS}
-    pwall, by_group, flash, col = profiled(
+    pwall, by_group, flash, col, _ = profiled(
         torch, lambda: step(state, b), groups, "flash kernels")
     busy = sum(by_group.values())
     return {"profiled_wall_ms": pwall * 1e3, "device_busy_ms": busy / 1e3,
@@ -2650,6 +2766,337 @@ def fuzz_on_card(ops, device="cuda", seeds=100, budget_s=30.0):
             "s_per_case": secs / (cases + len(corpus)), "launches": launches}
 
 
+# --------------------------------------------------------------------------
+# phase 11: the MoE, SSM and hybrid families
+# --------------------------------------------------------------------------
+
+LLAMA4 = "llama4-scout-17b-a16e"
+MAMBA2 = "mamba2-780m"
+JAMBA = "jamba-v0.1-52b"
+# llama4-scout cut to 4 of its 48 layers: 10.9 B parameters, 43.5 GB in
+# f32 (the whole model's 109 B do not fit one card)
+LLAMA4_LAYERS = 4
+ROUTE_TOKENS = 4096
+LONG_PREFILL = 4096
+# smoke width card vs CPU (f32, TF32 off): logits as phase 3's
+FAMILY_LOGIT_TOL = 1e-4
+
+
+def events_per_step(cfg) -> int:
+    """Rows a decode step collects for the family's serving probes: block
+    entry and exit on every layer, ssm.out on a mamba layer, moe.load and
+    moe.drops on a MoE layer, and the logits."""
+    per_super = sum(2 + (cfg.block_kind(j) == "mamba")
+                    + 2 * (cfg.ffn_kind(j) == "moe")
+                    for j in range(cfg.superblock))
+    return per_super * cfg.num_layers // cfg.superblock + 1
+
+
+def layers_of(cfg, pred) -> int:
+    return sum(pred(j) for j in range(cfg.superblock)) * \
+        cfg.num_layers // cfg.superblock
+
+
+def whole_chunks(cfg, reqs):
+    """Each prompt cut to whole SSD chunks where the model has mamba
+    layers: the reference's prefill takes a length S only as a multiple of
+    min(ssm_chunk, S) (ROADMAP, limits). The smoke configs' chunk is 2, so
+    their prompts become even; at chunk 256 these prompts stay whole."""
+    if any(cfg.block_kind(j) == "mamba" for j in range(cfg.superblock)):
+        for r in reqs:
+            chunk = min(cfg.ssm_chunk, len(r.prompt))
+            del r.prompt[len(r.prompt) // chunk * chunk:]
+    return reqs
+
+
+def family_serve(torch, ops, cfg, params, what, device="cuda"):
+    """Phase 3's serving (8 requests, the filter at 12, 4 slots) of `cfg`
+    with its family's probes, the counts set to 0 just before and read just
+    after; phase 3's checks, the MoE histogram's, and phase 4's replays."""
+    from repro_torch.core.runtime import to_numpy
+    engine, reqs = serve(torch, cfg, device, params)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    engine.submit_all(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    served = [r for r in reqs if not r.rejected]
+    steps = engine.step_count
+    maps = to_numpy(engine.maps)
+    print(f"  {what}: served {len(served)}, rejected "
+          f"{len(reqs) - len(served)}, {steps} decode steps in {wall:.2f} s "
+          f"(prefill included), {engine.events} events; kernels "
+          f"{json.dumps(launches)}", flush=True)
+    if not served or len(served) == len(reqs):
+        fail(f"{what}: the admission filter should admit some requests and "
+             "reject others")
+    if any(len(r.out) != 8 for r in served):
+        fail(f"{what}: a served request did not get max_new tokens")
+    if any(not 0 <= t < cfg.vocab_size for r in served for t in r.out):
+        fail(f"{what}: a generated token lies outside the vocabulary")
+    if any(launches[k] == 0 for k in SERVING_KERNELS):
+        fail(f"{what}: a serving kernel was not launched: {launches}")
+    if launches["tensor_stats"] != engine.events:
+        fail(f"{what}: tensor_stats launches {launches['tensor_stats']} != "
+             f"events collected {engine.events}")
+    if engine.events != steps * events_per_step(cfg):
+        fail(f"{what}: events {engine.events} != {steps} steps x "
+             f"{events_per_step(cfg)}")
+    if maps["sv_logits_rb"]["head"][0] != steps:
+        fail(f"{what}: the ringbuf did not get one logits record per step")
+    out = {"served": len(served), "rejected": len(reqs) - len(served),
+           "decode_steps": steps, "events": engine.events,
+           "events_per_step": events_per_step(cfg), "wall_s": wall,
+           "launches": launches}
+    n_moe = layers_of(cfg, lambda j: cfg.ffn_kind(j) == "moe")
+    if n_moe:
+        bins = int(maps["load_hist"]["bins"].sum())
+        if bins != n_moe * steps:
+            fail(f"{what}: the moe.load histogram holds {bins} loads, not "
+                 f"{n_moe} MoE layers x {steps} probed steps")
+        out["moe_load_hist"] = {int(i): int(maps["load_hist"]["bins"][i])
+                                for i in maps["load_hist"]["bins"]
+                                .nonzero()[0]}
+        out["moe_drops"] = int(maps["total_drops"]["values"][0])
+    n_ssm = layers_of(cfg, lambda j: cfg.block_kind(j) == "mamba")
+    if n_ssm and int(maps["ssm_rms_hist"]["bins"].sum()) != n_ssm * steps:
+        fail(f"{what}: the ssm.out histogram does not hold one rms per "
+             "mamba layer per step")
+    replay_modes(engine, what)
+    return engine, reqs, out
+
+
+def route_card_vs_cpu(torch, cfg, gates, what):
+    """The route's integer half (top-k, the stable sort, positions, keep
+    and drops) of `gates` on the card and of their CPU copy: equal
+    exactly."""
+    from repro_torch.models import moe as MOE
+    C = MOE.capacity(cfg, gates.shape[0])
+    got = {}
+    for dev, g in (("card", gates), ("cpu", gates.cpu())):
+        gvals, gids = MOE.top_k(g, cfg.experts_per_token)
+        sort_idx, sorted_eids, pos_c, keep = MOE.dispatch_plan(gids, C)
+        got[dev] = {"gvals": gvals, "gids": gids, "sort_idx": sort_idx,
+                    "sorted_eids": sorted_eids, "pos_c": pos_c,
+                    "keep": keep}
+    for k, v in got["cpu"].items():
+        if not torch.equal(got["card"][k].cpu(), v):
+            fail(f"{what}: the route's {k} differs between card and CPU")
+    drops = int((~got["cpu"]["keep"]).sum())
+    load = torch.bincount(got["cpu"]["gids"].reshape(-1),
+                          minlength=cfg.num_experts)
+    print(f"  {what}: {gates.shape[0]} tokens, capacity {C}: top-k, sort, "
+          f"positions and keep equal on card and CPU; {drops} drops; "
+          f"busiest expert {int(load.max())}", flush=True)
+    return {"tokens": gates.shape[0], "capacity": C, "drops": drops,
+            "max_load": int(load.max())}
+
+
+def llama4_full(torch, ops, registry):
+    """(a): llama4-scout at full width, 4 of its 48 layers, bf16 compute,
+    f32 parameters drawn on the card from seed 0."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core import events as E
+    from repro_torch.models import layers as L, moe as MOE, registry as MR
+    from repro_torch.optim import tree_leaves
+    full = registry.get(LLAMA4)
+    cfg = dataclasses.replace(full, num_layers=LLAMA4_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = MR.init_params(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in tree_leaves(params))
+    print(f"  (a) {LLAMA4}, {LLAMA4_LAYERS} of its {full.num_layers} layers "
+          f"(the whole model's {full.param_counts()['total'] / 1e9:.1f} B "
+          f"parameters do not fit one card): {n / 1e9:.2f} B parameters, "
+          f"{4 * n / 1e9:.1f} GB in f32, drawn in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # the router gates of the decode steps (the probed steps: a collector
+    # is active), recorded as the engine computes them
+    seen = []
+    orig = MOE.gates_of
+
+    def recorded(p, xt):
+        g = orig(p, xt)
+        if E.Collector.active() is not None:
+            seen.append(g)
+        return g
+    MOE.gates_of = recorded
+    try:
+        engine, _, out = family_serve(torch, ops, cfg, params,
+                                         "phase 11 (a)")
+    finally:
+        MOE.gates_of = orig
+    out["peak_gb_serving"] = torch.cuda.max_memory_allocated() / 1e9
+    decode_gates = seen[0]
+    out["route_decode"] = route_card_vs_cpu(
+        torch, cfg, decode_gates, "phase 11 (a) one decode step's route")
+    # a 4096-token batch of Zipf-distributed token ids (as text is) through
+    # layer 0's router: its capacity drops tokens
+    rng = np.random.default_rng(SEED)
+    toks = np.minimum(rng.zipf(1.2, ROUTE_TOKENS), cfg.vocab_size) - 1
+    layer0 = {part: {k: v[0] for k, v in leaves.items()} for part, leaves
+              in params["stack"]["blocks"][0].items()}
+    x = L.embed(params["embed"], torch.as_tensor(toks, device="cuda"), cfg)
+    gates = MOE.gates_of(layer0["moe"],
+                         L.apply_norm(layer0["norm2"], x, cfg))
+    out["route_4096"] = route_card_vs_cpu(torch, cfg, gates,
+                                          "phase 11 (a) a 4096-token route")
+    if out["route_4096"]["drops"] == 0:
+        fail("phase 11 (a): the 4096-token route dropped nothing")
+    del engine, seen, decode_gates, gates, x
+    out["timing"] = timing(torch, cfg, params, ranges={
+        f: (MOE, f) for f in ("route", "experts", "combine",
+                              "router_probes")})
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  (a) peak memory {out['peak_gb']:.1f} GB", flush=True)
+    out["params_b"] = n / 1e9
+    return out
+
+
+def long_prefill(torch, cfg, params, S=LONG_PREFILL):
+    """A batch-1 prefill of S tokens (S / ssm_chunk chunks through the
+    Python chunk loop): host ms (synchronised), device ms (CUDA events),
+    and under torch.profiler the device busy ms and the chunk loop's and
+    the SSD's device and host ms."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import registry as MR, ssm as SSM
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                         device="cuda")
+
+    def run():
+        return MR.prefill_fn(params, {"tokens": toks}, MR.make_cache(
+            cfg, 1, S, torch.float32, "cuda"), cfg)[0]
+    logits = run()
+    torch.cuda.synchronize()
+    if tuple(logits.shape) != (1, S, cfg.padded_vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"phase 11 (b): the {S}-token prefill's logits: shape "
+             f"{tuple(logits.shape)} or not finite")
+    del logits
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    dev = cuda_ms(torch, run, reps=3, warmup=0)
+    fns = {"chunk_scan": (SSM, "chunk_scan"),
+           "ssd_chunked": (SSM, "ssd_chunked")}
+    with ranged_fns(torch, fns), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        pwall = (time.perf_counter() - t0) * 1e3
+    busy = sum(_dev_us(e) for e in prof.key_averages()
+               if _is_device(e) and not e.key.startswith(RANGE)) / 1e3
+    spans = range_times(prof, fns)
+    loop = spans["chunk_scan"]
+    out = {"tokens": S, "chunks": S // min(cfg.ssm_chunk, S),
+           "host_ms": host, "device_ms_events": dev,
+           "profiled_wall_ms": pwall, "device_busy_ms": busy,
+           "ranges": spans,
+           "loop_device_share": loop["device_ms"] / busy,
+           "loop_host_share": loop["host_ms"] / pwall}
+    print(f"  (b) {S}-token prefill at batch 1 ({out['chunks']} chunks): "
+          f"host {', '.join(f'{h:.1f}' for h in host)} ms, device "
+          f"{dev:.1f} ms (CUDA events); profiled wall {pwall:.1f} ms, device "
+          f"busy {busy:.1f} ms; the chunk loop {loop['device_ms']:.3f} ms of "
+          f"device ({100 * out['loop_device_share']:.2f} %), "
+          f"{loop['host_ms']:.2f} ms of host "
+          f"({100 * out['loop_host_share']:.2f} %) in {loop['calls']} calls; "
+          f"the SSD {spans['ssd_chunked']['device_ms']:.1f} ms of device",
+          flush=True)
+    return out
+
+
+def mamba2_whole(torch, ops, registry):
+    """(b): mamba2-780m at its published depth and width."""
+    from repro_torch.models import registry as MR
+    from repro_torch.optim import tree_leaves
+    cfg = registry.get(MAMBA2)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = MR.init_params(cfg, gen, "cuda")
+    n = sum(p.numel() for p in tree_leaves(params))
+    print(f"  (b) {MAMBA2} whole: {cfg.num_layers} layers, "
+          f"{n / 1e6:.0f} M parameters, {4 * n / 1e9:.2f} GB in f32",
+          flush=True)
+    engine, _, out = family_serve(torch, ops, cfg, params,
+                                   "phase 11 (b)")
+    del engine
+    out["timing"] = timing(torch, cfg, params)
+    out["long_prefill"] = long_prefill(torch, cfg, params)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["params_m"] = n / 1e6
+    print(f"  (b) peak memory {out['peak_gb']:.1f} GB", flush=True)
+    return out
+
+
+def families_card_vs_cpu(torch, ops, registry, device="cuda"):
+    """(c): llama4-scout, mamba2 and jamba at smoke width (f32, TF32 off)
+    served on the card and on the CPU from the same weights, prompts cut
+    to even lengths: tokens equal, every map bit for bit (the logits ring
+    buffer's two Q47.16 stat lanes within STATS_TOL), prefill logits
+    within FAMILY_LOGIT_TOL."""
+    import numpy as np
+    from repro_torch.core.runtime import to_numpy
+    from repro_torch.models import registry as MR
+    out = {}
+    for arch in (LLAMA4, MAMBA2, JAMBA):
+        small = registry.smoke(arch)
+        what = f"phase 11 (c) {arch} at smoke width"
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED)
+        params = MR.init_params(small, gen, device)
+        e_gpu, r_gpu, res = family_serve(torch, ops, small, params, what,
+                                         device)
+        params_cpu = to_cpu(params)
+        e_cpu, r_cpu = serve(torch, small, "cpu", params_cpu)
+        e_cpu.submit_all(r_cpu)
+        if [r.rejected for r in r_gpu] != [r.rejected for r in r_cpu] or \
+                [r.out for r in r_gpu] != [r.out for r in r_cpu]:
+            fail(f"{what}: tokens or admission differ between card and CPU")
+        g, c = to_numpy(e_gpu.maps), to_numpy(e_cpu.maps)
+        rb_g, rb_c = g["sv_logits_rb"]["data"], c["sv_logits_rb"]["data"]
+        stat_err = float(np.abs(rb_g[:, 2:] - rb_c[:, 2:]).max())
+        if not np.allclose(rb_g[:, 2:].astype(np.float64),
+                           rb_c[:, 2:].astype(np.float64), rtol=STATS_TOL,
+                           atol=1):
+            fail(f"{what}: the ringbuf's stat lanes differ by {stat_err}")
+        g["sv_logits_rb"]["data"] = rb_g[:, :2]
+        c["sv_logits_rb"]["data"] = rb_c[:, :2]
+        bad = [f"{m}.{f}" for m in c for f in c[m]
+               if not np.array_equal(g[m][f], c[m][f])]
+        if bad or set(g) != set(c):
+            fail(f"{what}: maps differ between card and CPU: {bad}")
+        prompt = next(r.prompt for r in r_gpu if not r.rejected)
+        logits = [MR.prefill_fn(p, {"tokens": torch.tensor(
+            [prompt], device=dev)}, MR.make_cache(
+                small, 1, 128, torch.float32, dev), small)[0].cpu()
+            for p, dev in ((params, device), (params_cpu, "cpu"))]
+        err = float((logits[0] - logits[1]).abs().max())
+        if not err <= FAMILY_LOGIT_TOL * (1 + float(logits[1].abs().max())):
+            fail(f"{what}: card and CPU prefill logits differ by {err}")
+        print(f"  {what}: card and CPU tokens equal, maps bit for bit "
+              f"(ringbuf stat lanes within {stat_err:.0f} of 2^16), prefill "
+              f"logits within {err:.2e}", flush=True)
+        out[arch] = {**res, "logits_max_abs_diff": err,
+                     "ringbuf_stat_max_diff": stat_err}
+    return out
+
+
 def card_line() -> str:
     """The card's name and power limit as nvidia-smi prints them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2705,10 +3152,15 @@ def main(argv=None):
     d, pv = cfg.d_model, cfg.padded_vocab
     bf16, f32 = torch.bfloat16, torch.float32
     print("phase 2: kernels against their plain versions", flush=True)
+    # phase 11's shapes too: llama4-scout's block and logits, the router's
+    # moe.load ([16]) and moe.drops ([1]), mamba2's block and logits
     ts_err, ts_rows = check_tensor_stats(torch, TS, ref, ref.to_fx, [
         ((4, 1, d), bf16, False), ((4, 1, d), bf16, True),
         ((4, 1, pv), f32, True), ((2, 4096, d), bf16, True),
-        ((1 << 26,), f32, True), ((1,), f32, False)])
+        ((1 << 26,), f32, True), ((1,), f32, False),
+        ((4, 1, 5120), bf16, False), ((16,), f32, False),
+        ((4, 1, 202240), f32, True), ((4, 1, 1536), bf16, False),
+        ((4, 1, 50432), f32, True)])
     tomb = dict(tombstones=True, full=False)
     hash_rows = check_hash(torch, HU, ref, M, [
         ("path", 256, L2, dict(tombstones=False, full=False)),
@@ -2716,10 +3168,13 @@ def main(argv=None):
         ("full", 256, 4096, dict(tombstones=False, full=True)),
         ("global path", 16384, L2, tomb),
         ("global 4096", 16384, 4096, tomb),
+        ("moe path", 256, 17, dict(tombstones=False, full=False)),
+        ("ssm path", 256, 145, dict(tombstones=False, full=False)),
     ])
     rb_rows = check_ringbuf(torch, RB, ref, [
         ("path", 64, L2, 4), ("B<cap", 64, 40, 4), ("B>cap", 64, 4096, 4),
-        ("empty", 64, 0, 4),
+        ("empty", 64, 0, 4), ("moe path", 64, 17, 4),
+        ("ssm path", 64, 145, 4),
     ])
     rb_rows[0]["apply_device_ops"] = ringbuf_apply_ops(torch, RB, L2)
     corpus = [(p.stem, json.loads(p.read_text()))
@@ -2762,9 +3217,7 @@ def main(argv=None):
         fail("a served request did not get max_new tokens")
     if any(not 0 <= t < cfg.vocab_size for r in served for t in r.out):
         fail("a generated token lies outside the vocabulary")
-    serving_kernels = ("tensor_stats", "hash_fetch_add_batch",
-                       "ringbuf_emit_batch")
-    if any(launches[k] == 0 for k in serving_kernels):
+    if any(launches[k] == 0 for k in SERVING_KERNELS):
         fail(f"a kernel was not launched on the serving path: {launches}")
     if launches["tensor_stats"] != engine.events:
         fail(f"tensor_stats launches {launches['tensor_stats']} != events "
@@ -2818,24 +3271,7 @@ def main(argv=None):
 
     # ---- phase 4
     print("phase 4: replay the last decode tape in every mode", flush=True)
-    from repro_torch.core import jit as J
-    from repro_torch.core.runtime import to_numpy
-    rows, maps_in, step = engine.last_tape
-    results = {}
-    for mode in ("fused", "scan", "vectorized"):
-        out, _ = engine.runtime.probe_stage(
-            rows, maps_in, J.make_aux(time_ns=step, device="cuda"),
-            mode=mode)
-        results[mode] = to_numpy(out)
-    final = to_numpy(engine.maps)
-    for mode, st in results.items():
-        for mname in final:
-            for f in final[mname]:
-                if not (st[mname][f] == final[mname][f]).all():
-                    fail(f"{mode} replay: {mname}.{f} differs from the "
-                         "fused lane")
-    print(f"  tape of {rows.shape[0]} events: scan, vectorized and fused "
-          "map states bit-identical", flush=True)
+    replay_modes(engine, "phase 4")
 
     # ---- phase 5
     print("phase 5: warm serving time, with and without probes, and where "
@@ -2931,6 +3367,28 @@ def main(argv=None):
     p10 = {k: aggregator["launches"][k] + fuzz["launches"][k]
            for k in aggregator["launches"]}
 
+    # ---- phase 11
+    print("phase 11: the MoE, SSM and hybrid families: llama4-scout at full "
+          f"width ({LLAMA4_LAYERS} of 48 layers), mamba2-780m whole, and "
+          "llama4-scout, mamba2 and jamba at smoke width on the card and "
+          "the CPU", flush=True)
+    t11 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = {"llama4": llama4_full(torch, ops, registry)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    families["mamba2"] = mamba2_whole(torch, ops, registry)
+    gc.collect()
+    torch.cuda.empty_cache()
+    families["smoke"] = families_card_vs_cpu(torch, ops, registry)
+    families["phase_s"] = time.perf_counter() - t11
+    print(f"  phase 11 took {families['phase_s']:.1f} s", flush=True)
+    p11_runs = [families["llama4"], families["mamba2"],
+                *families["smoke"].values()]
+    p11 = {k: sum(r["launches"][k] for r in p11_runs)
+           for k in p11_runs[0]["launches"]}
+
     # ---- report
     def pick(rows_, key, val):
         return next(r for r in rows_ if r[key] == val)
@@ -2951,7 +3409,7 @@ def main(argv=None):
                 "library_ms": row.get("library_ms"),
                 "library_is": row.get("library_is"),
                 "phase9_launches": p9[name], "phase10_launches": p10[name],
-                "shapes": shapes}
+                "phase11_launches": p11[name], "shapes": shapes}
 
     report = {"kernels": [
         entry("tensor_stats", "tensor_stats.cu",
@@ -2979,8 +3437,9 @@ def main(argv=None):
                  **times},
         "live": live,
         "train": train, "fleet": fleet, "aggregator": aggregator,
-        "fuzz": fuzz, "train_launches_of_serving_kernels": {
-            k: tl[k] for k in serving_kernels},
+        "fuzz": fuzz, "families": families,
+        "train_launches_of_serving_kernels": {
+            k: tl[k] for k in SERVING_KERNELS},
         "flash_sm90_build": sm90_build, "probe_build": probe_build}
     print(json.dumps(report), flush=True)
     print(card_line(), flush=True)

@@ -1,10 +1,15 @@
 """Serving driver: batched requests against the reduced (smoke) config of
 an architecture with optional bpftime instrumentation, on the GPU by
-default. Also holds the serving probe set that chip_smoke.py and the tests
-attach.
+default. Also holds the serving probe sets that chip_smoke.py and the
+tests attach.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --requests 8 --max-new 8 [--admit-limit 12] [--device cpu]
+
+Every decoder family serves (dense, MoE, SSM, hybrid). The SSD prefill of
+mamba2 and jamba takes only prompts whose length is a multiple of the
+smoke config's chunk (2), as the JAX launcher does: with the default
+requests both stop on the third, a 3-token prompt.
 """
 from __future__ import annotations
 
@@ -45,7 +50,7 @@ _COUNT = """
 """
 _HIST_RMS = """
     ldxdw r2, [r1+ctx:rms]
-    lddw r1, map:sv_rms_hist
+    lddw r1, map:{map}
     call hist_add
     mov r0, 0
     exit
@@ -73,11 +78,59 @@ SERVE_PROBES = [
      ("sv_layer_counts", "array", 128, 4), "uprobe:block"),
     ("sv_hash", _COUNT.format(map="sv_key_hash"),
      ("sv_key_hash", "hash", 256, 4), "uprobe:block"),
-    ("sv_hist", _HIST_RMS, ("sv_rms_hist", "log2hist", 64, 4),
-     "uretprobe:block"),
+    ("sv_hist", _HIST_RMS.format(map="sv_rms_hist"),
+     ("sv_rms_hist", "log2hist", 64, 4), "uretprobe:block"),
     ("sv_rb", _RB_LOGITS, ("sv_logits_rb", "ringbuf", 64, 4),
      "probe:logits"),
 ]
+
+
+# The router's health (examples/moe_balance.py): the moe.load site is the
+# per-expert token count of one router call, so ctx:max is the busiest
+# expert's load (a LOG2HIST of it shows imbalance); moe.drops is the count
+# of assignments past capacity, ctx:mean of a one-element tensor, summed
+# in an ARRAY slot.
+_BALANCE = """
+    ldxdw r2, [r1+ctx:max]
+    lddw r1, map:load_hist
+    call hist_add
+    mov r0, 0
+    exit
+"""
+_DROPS = """
+    ldxdw r6, [r1+ctx:mean]
+    mov r7, 0
+    stxdw [r10-8], r7
+    lddw r1, map:total_drops
+    mov r2, r10
+    add r2, -8
+    arsh r6, 16
+    mov r3, r6
+    call map_fetch_add
+    mov r0, 0
+    exit
+"""
+MOE_PROBES = [
+    ("moe_balance", _BALANCE, ("load_hist", "log2hist", 64, 4),
+     "probe:moe.load"),
+    ("moe_drops", _DROPS, ("total_drops", "array", 4, 4), "probe:moe.drops"),
+]
+# A LOG2HIST of each mamba mixer's output rms.
+SSM_PROBES = [
+    ("ssm_hist", _HIST_RMS.format(map="ssm_rms_hist"),
+     ("ssm_rms_hist", "log2hist", 64, 4), "probe:ssm.out"),
+]
+
+
+def family_probes(cfg) -> list:
+    """SERVE_PROBES, plus MOE_PROBES where a layer routes to experts and
+    SSM_PROBES where a layer is a mamba mixer."""
+    layers = range(cfg.superblock)
+    return (SERVE_PROBES
+            + (MOE_PROBES if any(cfg.ffn_kind(j) == "moe" for j in layers)
+               else [])
+            + (SSM_PROBES if any(cfg.block_kind(j) == "mamba"
+                                 for j in layers) else []))
 
 
 # The live-lane programs chip_smoke.py hot-attaches while serving, each on
@@ -136,12 +189,12 @@ def load_live_probes(rt) -> dict:
     return pids
 
 
-def attach_serve_probes(rt):
-    """Load SERVE_PROBES into `rt` and attach them on the fused lane;
-    returns the links."""
+def attach_serve_probes(rt, probes=SERVE_PROBES):
+    """Load `probes` (SERVE_PROBES by default) into `rt` and attach them on
+    the fused lane; returns the links."""
     from ..core.maps import MapKind, MapSpec
     links = []
-    for name, text, (mname, kind, n, w), target in SERVE_PROBES:
+    for name, text, (mname, kind, n, w), target in probes:
         pid = rt.load_asm(name, text,
                           [MapSpec(mname, MapKind(kind), n, rec_width=w)],
                           "uprobe")

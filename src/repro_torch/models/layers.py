@@ -239,8 +239,8 @@ def attention_block(p, x, positions, cfg: ModelConfig, *, cache=None,
 # MLP
 # --------------------------------------------------------------------------
 
-def init_mlp(gen, cfg: ModelConfig, device, lead=()):
-    D, Fh = cfg.d_model, cfg.d_ff
+def init_mlp(gen, cfg: ModelConfig, device, lead=(), d_ff=None):
+    D, Fh = cfg.d_model, (d_ff or cfg.d_ff)
     p = {"wi": randn(gen, lead + (D, Fh), 1.0 / math.sqrt(D), device),
          "wo": randn(gen, lead + (Fh, D), 1.0 / math.sqrt(Fh), device)}
     if cfg.act == "swiglu":

@@ -1,8 +1,8 @@
 """Uniform model entry points per family: init / loss / cache / prefill /
 decode, plus carrying parameters over from the JAX package.
 
-Only the dense decoder family is in this package yet; the encoder-decoder
-family raises NotImplementedError.
+Every decoder family (dense, MoE, SSM, hybrid) is in this package; the
+encoder-decoder family raises NotImplementedError.
 """
 from __future__ import annotations
 

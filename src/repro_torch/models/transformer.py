@@ -1,13 +1,17 @@
-"""Decoder-only stacked-block model (dense family).
+"""Generic decoder-only stacked-block model.
 
-Layers are grouped into SUPERBLOCKS (cfg.superblock consecutive layers);
-parameters are stacked across superblocks on dim 0, as in the JAX package
+One implementation covers dense / MoE / SSM (mamba2) / hybrid (jamba) via
+the config's per-layer pattern: layer i = mixer(attn|mamba) + ffn
+(dense|moe|none). Layers are grouped into SUPERBLOCKS (cfg.superblock
+consecutive layers, the repeating heterogeneous unit); parameters are
+stacked across superblocks on dim 0, as in the JAX package
 (params["stack"]["blocks"][j][name] has n_super rows), and the forward
 loops over them with `events.probed_scan`, which tags each superblock's
 probe rows with its index.
 
-Probe sites: block (uprobe/uretprobe), attn.out, ffn.out, embed.out,
-logits. MoE, SSM and hybrid blocks are not in this package yet.
+Probe sites: block (uprobe/uretprobe), attn.out, ssm.out, ffn.out,
+moe.router, moe.load, moe.drops, embed.out, logits. M-RoPE (the VLM
+family) is not in this package yet.
 """
 from __future__ import annotations
 
@@ -17,17 +21,12 @@ from ..configs.base import ModelConfig
 from ..core import events as E
 from ..core.events import probe_site
 from ..device import resolve
-from . import layers as L
+from . import layers as L, moe as MOE, ssm as SSM
 
 F32 = torch.float32
 
 
-def _check_dense(cfg: ModelConfig):
-    for j in range(cfg.superblock):
-        if cfg.block_kind(j) != "attn" or cfg.ffn_kind(j) != "dense":
-            raise NotImplementedError(
-                f"{cfg.name}: MoE and SSM blocks come with later slices "
-                "(ROADMAP A13)")
+def _check_rope(cfg: ModelConfig):
     if cfg.rope_kind == "mrope":
         raise NotImplementedError(f"{cfg.name}: M-RoPE comes with the VLM "
                                   "slice (ROADMAP A13)")
@@ -37,11 +36,31 @@ def _check_dense(cfg: ModelConfig):
 # init
 # --------------------------------------------------------------------------
 
+def _init_block(gen, cfg: ModelConfig, j: int, dev, lead):
+    """Superblock position j, every leaf with the leading dims `lead`."""
+    kind, ffn = cfg.block_kind(j), cfg.ffn_kind(j)
+    p = {"norm1": L.init_norm(cfg, dev, lead=lead)}
+    if kind == "attn":
+        p["attn"] = L.init_attention(gen, cfg, dev, lead=lead)
+    else:
+        p["mamba"] = SSM.init_mamba(gen, cfg, dev, lead=lead)
+    if ffn != "none":
+        p["norm2"] = L.init_norm(cfg, dev, lead=lead)
+        if ffn == "moe":
+            p["moe"] = MOE.init_moe(gen, cfg, dev, lead=lead)
+            if cfg.moe_shared:
+                p["mlp_shared"] = L.init_mlp(gen, cfg, dev, lead=lead,
+                                             d_ff=cfg.moe_d_ff)
+        else:
+            p["mlp"] = L.init_mlp(gen, cfg, dev, lead=lead)
+    return p
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device="cuda") -> dict:
     """Random f32 parameters. `generator` defaults to one on `device`
     seeded with 0; draws happen on the generator's device."""
-    _check_dense(cfg)
+    _check_rope(cfg)
     assert cfg.num_layers % cfg.superblock == 0, \
         f"{cfg.name}: num_layers % superblock != 0"
     dev = resolve(device)
@@ -49,16 +68,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     if gen is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
-    n_super = cfg.num_layers // cfg.superblock
-    lead = (n_super,)
-    blocks = []
-    for _ in range(cfg.superblock):
-        blocks.append({
-            "norm1": L.init_norm(cfg, dev, lead=lead),
-            "attn": L.init_attention(gen, cfg, dev, lead=lead),
-            "norm2": L.init_norm(cfg, dev, lead=lead),
-            "mlp": L.init_mlp(gen, cfg, dev, lead=lead),
-        })
+    lead = (cfg.num_layers // cfg.superblock,)
+    # the blocks are drawn before the embedding (the draw order fixes what
+    # a seed gives)
+    blocks = [_init_block(gen, cfg, j, dev, lead)
+              for j in range(cfg.superblock)]
     return {
         "embed": L.init_embedding(gen, cfg, dev),
         "stack": {"blocks": blocks},
@@ -72,15 +86,24 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
                device="cuda") -> dict:
-    """KV cache, blocks[j]["k"|"v"] of shape [n_super, B, max_seq, KH, hd],
-    and the per-row length `pos` (i32[B])."""
-    _check_dense(cfg)
+    """Per superblock position: the KV cache blocks[j]["k"|"v"] of shape
+    [n_super, B, max_seq, KH, hd] for attention, the SSM state
+    blocks[j]["conv"|"ssm"] for mamba; and the per-row length `pos`
+    (i32[B])."""
+    _check_rope(cfg)
     dev = resolve(device)
     n_super = cfg.num_layers // cfg.superblock
-    kv_shape = (n_super, batch, max_seq, cfg.num_kv_heads, cfg.hd)
-    blocks = [{"k": torch.zeros(kv_shape, dtype=dtype, device=dev),
-               "v": torch.zeros(kv_shape, dtype=dtype, device=dev)}
-              for _ in range(cfg.superblock)]
+    blocks = []
+    for j in range(cfg.superblock):
+        if cfg.block_kind(j) == "attn":
+            kv_shape = (n_super, batch, max_seq, cfg.num_kv_heads, cfg.hd)
+            blocks.append({"k": torch.zeros(kv_shape, dtype=dtype,
+                                            device=dev),
+                           "v": torch.zeros(kv_shape, dtype=dtype,
+                                            device=dev)})
+        else:
+            blocks.append(SSM.init_mamba_cache(cfg, batch, dtype, dev,
+                                               lead=(n_super,)))
     return {"blocks": blocks,
             "pos": torch.zeros(batch, dtype=torch.int32, device=dev)}
 
@@ -93,30 +116,50 @@ def _superblock_fwd(p_sb, x, cache_sb, positions, cfg: ModelConfig,
                     mode: str, cache_pos):
     new_cache = []
     for j in range(cfg.superblock):
+        kind, ffn = cfg.block_kind(j), cfg.ffn_kind(j)
         p = p_sb["blocks"][j]
         x = probe_site("block", x, kind=E.KIND_ENTRY)
         h = L.apply_norm(p["norm1"], x, cfg)
         c = cache_sb["blocks"][j] if cache_sb is not None else None
-        if mode == "train":
-            out, _ = L.attention_block(p["attn"], h, positions, cfg)
-            new_cache.append(None)
-        elif mode == "prefill":
-            out, (k_new, v_new) = L.attention_block(p["attn"], h, positions,
-                                                    cfg)
-            start = torch.zeros(x.shape[0], dtype=torch.int64,
-                                device=x.device)
-            new_cache.append({"k": L._write_cache(c["k"], k_new, start),
-                              "v": L._write_cache(c["v"], v_new, start)})
-        else:  # decode
-            out, kv = L.attention_block(p["attn"], h, positions, cfg,
-                                        cache=(c["k"], c["v"]),
-                                        cache_pos=cache_pos)
-            new_cache.append({"k": kv[0], "v": kv[1]})
-        out = probe_site("attn.out", out)
+        if kind == "attn":
+            if mode == "train":
+                out, _ = L.attention_block(p["attn"], h, positions, cfg)
+                new_cache.append(None)
+            elif mode == "prefill":
+                out, (k_new, v_new) = L.attention_block(p["attn"], h,
+                                                        positions, cfg)
+                start = torch.zeros(x.shape[0], dtype=torch.int64,
+                                    device=x.device)
+                new_cache.append({"k": L._write_cache(c["k"], k_new, start),
+                                  "v": L._write_cache(c["v"], v_new, start)})
+            else:  # decode
+                out, kv = L.attention_block(p["attn"], h, positions, cfg,
+                                            cache=(c["k"], c["v"]),
+                                            cache_pos=cache_pos)
+                new_cache.append({"k": kv[0], "v": kv[1]})
+        else:
+            if mode == "train":
+                out, c = SSM.apply_mamba(p["mamba"], h, cfg)
+            elif mode == "prefill":
+                out, c = SSM.apply_mamba(p["mamba"], h, cfg,
+                                         return_state=True)
+            else:
+                out, c = SSM.apply_mamba(p["mamba"], h, cfg, cache=c)
+            new_cache.append(c)
+        out = probe_site("attn.out" if kind == "attn" else "ssm.out", out)
         x = x + out
-        h2 = L.apply_norm(p["norm2"], x, cfg)
-        f = probe_site("ffn.out", L.apply_mlp(p["mlp"], h2, cfg))
-        x = x + f
+
+        if ffn != "none":
+            h2 = L.apply_norm(p["norm2"], x, cfg)
+            if ffn == "moe":
+                # the GSPMD path; the expert-parallel one is ROADMAP A14
+                f = MOE.apply_moe(p["moe"], h2, cfg)
+                if cfg.moe_shared:
+                    f = f + L.apply_mlp(p["mlp_shared"], h2, cfg)
+            else:
+                f = L.apply_mlp(p["mlp"], h2, cfg)
+            f = probe_site("ffn.out", f)
+            x = x + f
         x = probe_site("block", x, kind=E.KIND_EXIT)
     return x, new_cache
 

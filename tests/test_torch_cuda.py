@@ -640,3 +640,61 @@ def test_fuzz_seeds_on_the_card(cuda):
         lanes.update(r.lanes)
     assert {"jit", "table", "batched", "vectorized", "merge1"} <= lanes
     assert ops.launch_counts()["table_interp"] > 0
+
+
+@pytest.mark.parametrize("arch,k", [("llama4-scout-17b-a16e", 1),
+                                    ("jamba-v0.1-52b", 2)])
+def test_moe_route_on_the_card_equals_the_cpu(cuda, arch, k):
+    """The route's integer half at the published expert count, 4096
+    tokens: top-k (ties broken toward the lower id: the gates are rounded
+    to quarters of the largest), the stable sort, positions, keep and
+    drops, card against CPU copies, exactly."""
+    from repro_torch.configs import registry as R
+    from repro_torch.models import moe as MOE
+    cfg = R.get(arch)
+    assert cfg.experts_per_token == k
+    g = torch.Generator(device=cuda).manual_seed(0)
+    logits = torch.randn(4096, cfg.num_experts, generator=g, device=cuda)
+    logits[:, 0] += 1.5                            # a hot expert: drops
+    gates = torch.softmax(logits, -1)
+    gates = torch.round(gates * 4) / 4             # many exact ties
+    C = MOE.capacity(cfg, 4096)
+    out = []
+    for x in (gates, gates.cpu()):
+        gvals, gids = MOE.top_k(x, k)
+        out.append([t.cpu() for t in (gvals, gids,
+                                      *MOE.dispatch_plan(gids, C))])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    assert int((~out[1][5]).sum()) > 0
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "mamba2-780m",
+                                  "jamba-v0.1-52b"])
+def test_family_decode_step_on_the_card_equals_the_cpu(cuda, arch):
+    """A smoke-width model (f32, TF32 off): a 6-token prefill and one
+    decode step on the card and on the CPU from the same weights: logits
+    and every cache leaf within 1e-4."""
+    from repro_torch.configs import registry as R
+    from repro_torch.models import registry as MR
+    cfg = R.smoke(arch)
+    params = MR.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 6),
+                         generator=torch.Generator().manual_seed(1))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = []
+        for dev in (cuda, torch.device("cpu")):
+            p = MR.params_from_numpy(
+                TE._tree_map(lambda a: a.numpy(), params), dev)
+            cache = MR.make_cache(cfg, 2, 16, torch.float32, dev)
+            _, cache = MR.prefill_fn(p, {"tokens": toks.to(dev)}, cache,
+                                     cfg)
+            logits, cache = MR.decode_fn(p, toks[:, :1].to(dev), cache, cfg)
+            got.append(TE._tree_leaves((logits, cache)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for a, b in zip(*got):
+        np.testing.assert_allclose(a.cpu().float().numpy(),
+                                   b.float().numpy(), rtol=1e-4, atol=1e-4)
