@@ -144,7 +144,36 @@ Phases:
      share. (c) llama4-scout, mamba2 and jamba at smoke width (f32, TF32
      off) on the card and on the CPU from the same weights, even prompts:
      tokens, maps (bit for bit; the ring buffer's stat lanes within
-     2e-5) and prefill logits (1e-4).
+     2e-5) and prefill logits (1e-4);
+ 12. the encoder-decoder and VLM families, each model freed before the
+     next: (a) seamless-m4t-medium whole (12 + 12 layers, D 1024, 16 heads
+     of 64, vocab 256,206; 0.98 B f32 parameters drawn on the card, bf16
+     compute): 4 requests of 4096 frame embeddings and 16 tokens, one
+     probed prefill through serve/steps.make_prefill_step with
+     ENCDEC_PROBES (enc.in and 12 enc.block events; the encoder's
+     non-causal self-attention is the bf16 flash forward kernel, 12
+     launches) and 16 probed decode steps (one decode.logits event each)
+     from its cache (f32, max_seq 128, enc_seq 4096). Fails unless the
+     serving kernels launched, tensor_stats once per event, the maps
+     count as they should, the prefill's and the last decode step's tapes
+     replay bit for bit in every mode, and the kernel at the encoder's
+     shape is within TOL_BF16_O/TOL_LSE of its plain version. Prints
+     prefill ms (host, CUDA events), the encoder's device ms and the flash
+     kernels' share, decode ms a step probed and not, the device busy
+     share, casts, peak memory, and the kernel's us beside SDPA and the
+     bound. (b) qwen2-vl-72b at full width cut to 4 of 80 layers (64/8
+     heads of 128, M-RoPE 16/24/24, qkv bias; 6.0 B parameters): (i)
+     phase 3's serving, text-only, with SERVE_PROBES, checked and timed as
+     phase 11 (a); (ii) one request of a 32 x 32 patch grid and 3072
+     tokens with M-RoPE grid ids through registry.prefill_fn (4 flash
+     launches, causal, hd 128) and 8 probed decode steps, checked and
+     replayed; the kernel at (BH 64, BKH 8, S 4096, hd 128) against its
+     plain version, SDPA and the bound. (c) seamless (4096 frames: the f32
+     flash kernel non-causal in the model) and qwen2-vl (served, and a
+     multimodal request with grid ids) at smoke width, f32, TF32 off, on
+     the card and on the CPU from the same weights: tokens equal, maps bit
+     for bit but the ring buffers' stat lanes (within 1 of 2^16),
+     prefill logits within 1e-4 relative.
 
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}. Any failure exits
@@ -843,12 +872,9 @@ def check_flash(torch, FA, ref):
 
     B, S, H, KH, hd = 2, 4096, 14, 2, 64
     BH, BKH = B * H, B * KH
-    q, k, v, do = _flash_inputs(torch, BH, BKH, S, hd, torch.bfloat16, 7)
-    o, lse = FA.flash_fwd_cuda(q, k, v, True)
-    wo, wl = ref.flash_fwd(q, k, v, True, H // KH)
-    err = _close(torch, o, wo, *FA.TOL_BF16_O, "flash_fwd bf16 path shape")
-    lse_err = _close(torch, lse, wl, *FA.TOL_LSE,
-                     "flash lse bf16 path shape")
+    fwd_row, (q, k, v, do, o, lse) = flash_fwd_at(
+        torch, FA, ref, BH, BKH, S, hd, True, "phase 2 path shape", seed=7)
+    err = fwd_row["max_abs_err"]
     got = FA.flash_bwd_cuda(q, k, v, o, lse, do, True)
     again = FA.flash_bwd_cuda(q, k, v, o, lse, do, True)
     want = ref.flash_bwd(q, k, v, o, lse, do, True, H // KH)
@@ -861,11 +887,9 @@ def check_flash(torch, FA, ref):
         gerr = max(gerr, _close(torch, g, w, rtol, atol * scale,
                                 f"flash_bwd {name} bf16 path shape",
                                 FA.TOL_BF16_NORM))
-    # the yardstick: one library call on the same inputs ([B, H, S, hd])
+    # the yardstick: SDPA's forward and backward on the same inputs ([B, H,
+    # S, hd])
     q4, k4, v4, do4 = (t.view(B, -1, S, hd) for t in (q, k, v, do))
-    sd = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
-                                        enable_gqa=True)
-    sdpa_err = float((sd.float().reshape(BH, S, hd) - o.float()).abs().max())
     qg, kg, vg = (t.detach().clone().requires_grad_(True)
                   for t in (q4, k4, v4))
 
@@ -879,11 +903,6 @@ def check_flash(torch, FA, ref):
     sd_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
                                             enable_gqa=True)
 
-    fwd_ms = cuda_ms(torch, lambda: FA.flash_fwd_cuda(q, k, v, True), 10)
-    fwd_plain = cuda_ms(torch, lambda: ref.flash_fwd(q, k, v, True, H // KH),
-                        3, warmup=1)
-    fwd_lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True, enable_gqa=True), 20)
     bwd_ms = cuda_ms(torch, lambda: FA.flash_bwd_cuda(q, k, v, o, lse, do,
                                                       True), 5)
     bwd_plain = cuda_ms(torch, lambda: ref.flash_bwd(q, k, v, o, lse, do,
@@ -895,21 +914,11 @@ def check_flash(torch, FA, ref):
     del sd_out
     pairs = S * (S + 1) // 2                       # causal (q, k) pairs
     io = 2 * (2 * BH + 2 * BKH) * S * hd           # q, o and k, v in bf16
-    fb, fby = bound_ms(io + 4 * BH * S, 4.0 * hd * pairs * BH,
-                       BF16_OPS_PER_S)
     # backward: reads q, k, v, o, do and lse, writes dq, dk, dv; the least
     # work is five products (q k^T recomputed, do v^T, p^T do, ds^T q, ds k)
     bb, bby = bound_ms(io + 2 * BH * S * hd + 4 * BH * S
                        + 2 * (BH + 2 * BKH) * S * hd,
                        10.0 * hd * pairs * BH, BF16_OPS_PER_S)
-    fwd_row = {"shape": [B, S, H, KH, hd], "dtype": "bfloat16",
-               "ms": fwd_ms, "plain_ms": fwd_plain, "bound_ms": fb,
-               "bound_by": fby, "library_ms": fwd_lib,
-               "library_is": "sdpa forward",
-               "tflops": 4.0 * hd * pairs * BH / fwd_ms / 1e9,
-               "share_of_bound": fb / fwd_ms,
-               "max_abs_err": err, "lse_max_abs_err": lse_err,
-               "max_abs_diff_vs_sdpa": sdpa_err}
     bwd_row = {"shape": [B, S, H, KH, hd], "dtype": "bfloat16",
                "ms": bwd_ms, "plain_ms": bwd_plain, "bound_ms": bb,
                "bound_by": bby, "library_ms": bwd_lib,
@@ -918,11 +927,6 @@ def check_flash(torch, FA, ref):
                "tflops": 14.0 * hd * pairs * BH / bwd_ms / 1e9,
                "share_of_bound": bb / bwd_ms,
                "max_abs_err": gerr}
-    print(f"  flash_fwd {B, S, H, KH, hd} bf16: kernel {fwd_ms:.3f} ms "
-          f"({fwd_row['tflops']:.1f} TFLOP/s, {100 * fb / fwd_ms:.1f} % of "
-          f"the bound), plain {fwd_plain:.3f} ms, sdpa {fwd_lib:.3f} ms, "
-          f"bound {fb:.4f} ms ({fby}); max abs err {err:.2e} (lse "
-          f"{lse_err:.2e}), vs sdpa {sdpa_err:.2e}", flush=True)
     print(f"  flash_bwd {B, S, H, KH, hd} bf16: kernel {bwd_ms:.3f} ms "
           f"({bwd_row['tflops']:.1f} TFLOP/s of the 7 products, "
           f"{100 * bb / bwd_ms:.1f} % of the bound), plain {bwd_plain:.3f} "
@@ -1210,12 +1214,18 @@ def replay_modes(engine, what):
     """The engine's last decode tape through the fused, scan and vectorized
     modes from the maps that step started from: each must end in the map
     state the engine holds, bit for bit."""
+    replay_tape(engine.runtime, engine.last_tape, engine.maps, what)
+
+
+def replay_tape(rt, tape, maps, what):
+    """A step's tape (rows, maps_in, step) through the fused, scan and
+    vectorized modes of `rt`: each must end in the map state `maps`."""
     from repro_torch.core import jit as J
     from repro_torch.core.runtime import to_numpy
-    rows, maps_in, step = engine.last_tape
-    final = to_numpy(engine.maps)
+    rows, maps_in, step = tape
+    final = to_numpy(maps)
     for mode in ("fused", "scan", "vectorized"):
-        out, _ = engine.runtime.probe_stage(
+        out, _ = rt.probe_stage(
             rows, maps_in, J.make_aux(time_ns=step, device=rows.device),
             mode=mode)
         st = to_numpy(out)
@@ -3050,50 +3060,551 @@ def families_card_vs_cpu(torch, ops, registry, device="cuda"):
     to even lengths: tokens equal, every map bit for bit (the logits ring
     buffer's two Q47.16 stat lanes within STATS_TOL), prefill logits
     within FAMILY_LOGIT_TOL."""
-    import numpy as np
-    from repro_torch.core.runtime import to_numpy
     from repro_torch.models import registry as MR
     out = {}
     for arch in (LLAMA4, MAMBA2, JAMBA):
         small = registry.smoke(arch)
         what = f"phase 11 (c) {arch} at smoke width"
-        gen = torch.Generator(device=device)
-        gen.manual_seed(SEED)
-        params = MR.init_params(small, gen, device)
-        e_gpu, r_gpu, res = family_serve(torch, ops, small, params, what,
-                                         device)
-        params_cpu = to_cpu(params)
-        e_cpu, r_cpu = serve(torch, small, "cpu", params_cpu)
-        e_cpu.submit_all(r_cpu)
-        if [r.rejected for r in r_gpu] != [r.rejected for r in r_cpu] or \
-                [r.out for r in r_gpu] != [r.out for r in r_cpu]:
-            fail(f"{what}: tokens or admission differ between card and CPU")
-        g, c = to_numpy(e_gpu.maps), to_numpy(e_cpu.maps)
-        rb_g, rb_c = g["sv_logits_rb"]["data"], c["sv_logits_rb"]["data"]
-        stat_err = float(np.abs(rb_g[:, 2:] - rb_c[:, 2:]).max())
-        if not np.allclose(rb_g[:, 2:].astype(np.float64),
-                           rb_c[:, 2:].astype(np.float64), rtol=STATS_TOL,
-                           atol=1):
-            fail(f"{what}: the ringbuf's stat lanes differ by {stat_err}")
-        g["sv_logits_rb"]["data"] = rb_g[:, :2]
-        c["sv_logits_rb"]["data"] = rb_c[:, :2]
-        bad = [f"{m}.{f}" for m in c for f in c[m]
-               if not np.array_equal(g[m][f], c[m][f])]
-        if bad or set(g) != set(c):
-            fail(f"{what}: maps differ between card and CPU: {bad}")
-        prompt = next(r.prompt for r in r_gpu if not r.rejected)
+        params, params_cpu, res = serve_card_vs_cpu(torch, ops, small, what,
+                                                    device)
+        prompt = res.pop("prompt")
         logits = [MR.prefill_fn(p, {"tokens": torch.tensor(
             [prompt], device=dev)}, MR.make_cache(
                 small, 1, 128, torch.float32, dev), small)[0].cpu()
             for p, dev in ((params, device), (params_cpu, "cpu"))]
-        err = float((logits[0] - logits[1]).abs().max())
-        if not err <= FAMILY_LOGIT_TOL * (1 + float(logits[1].abs().max())):
-            fail(f"{what}: card and CPU prefill logits differ by {err}")
+        err = logits_close(logits, what)
         print(f"  {what}: card and CPU tokens equal, maps bit for bit "
-              f"(ringbuf stat lanes within {stat_err:.0f} of 2^16), prefill "
-              f"logits within {err:.2e}", flush=True)
-        out[arch] = {**res, "logits_max_abs_diff": err,
-                     "ringbuf_stat_max_diff": stat_err}
+              f"(ringbuf stat lanes within {res['ringbuf_stat_max_diff']:.0f}"
+              f" of 2^16), prefill logits within {err:.2e}", flush=True)
+        out[arch] = {**res, "logits_max_abs_diff": err}
+    return out
+
+
+def serve_card_vs_cpu(torch, ops, small, what, device="cuda"):
+    """Phase 3's serving of the smoke-width `small` on the card (counted,
+    `family_serve`) and on the CPU from the same weights: admission and
+    tokens equal, maps as `maps_card_vs_cpu` holds them. Returns (card
+    params, CPU params, the card run's results with a served prompt)."""
+    from repro_torch.models import registry as MR
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    params = MR.init_params(small, gen, device)
+    e_gpu, r_gpu, res = family_serve(torch, ops, small, params, what,
+                                     device)
+    params_cpu = to_cpu(params)
+    e_cpu, r_cpu = serve(torch, small, "cpu", params_cpu)
+    e_cpu.submit_all(r_cpu)
+    if [r.rejected for r in r_gpu] != [r.rejected for r in r_cpu] or \
+            [r.out for r in r_gpu] != [r.out for r in r_cpu]:
+        fail(f"{what}: tokens or admission differ between card and CPU")
+    res["ringbuf_stat_max_diff"] = maps_card_vs_cpu(
+        e_gpu.maps, e_cpu.maps, "sv_logits_rb", what)
+    res["prompt"] = next(r.prompt for r in r_gpu if not r.rejected)
+    return params, params_cpu, res
+
+
+def maps_card_vs_cpu(maps_gpu, maps_cpu, rb_name, what) -> float:
+    """Every map bit for bit but the ring buffer `rb_name`'s two Q47.16
+    stat lanes, which must be within STATS_TOL (relative) or 1; returns
+    their largest difference."""
+    import numpy as np
+    from repro_torch.core.runtime import to_numpy
+    g, c = to_numpy(maps_gpu), to_numpy(maps_cpu)
+    rb_g, rb_c = g[rb_name]["data"], c[rb_name]["data"]
+    stat_err = float(np.abs(rb_g[:, 2:] - rb_c[:, 2:]).max())
+    if not np.allclose(rb_g[:, 2:].astype(np.float64),
+                       rb_c[:, 2:].astype(np.float64), rtol=STATS_TOL,
+                       atol=1):
+        fail(f"{what}: the ringbuf's stat lanes differ by {stat_err}")
+    g[rb_name]["data"], c[rb_name]["data"] = rb_g[:, :2], rb_c[:, :2]
+    bad = [f"{m}.{f}" for m in c for f in c[m]
+           if not np.array_equal(g[m][f], c[m][f])]
+    if bad or set(g) != set(c):
+        fail(f"{what}: maps differ between card and CPU: {bad}")
+    return stat_err
+
+
+def logits_close(logits, what) -> float:
+    """Card and CPU logits [card, cpu] within FAMILY_LOGIT_TOL relative to
+    the largest magnitude (and absolute below 1); returns the max abs
+    difference."""
+    err = float((logits[0] - logits[1]).abs().max())
+    if not err <= FAMILY_LOGIT_TOL * (1 + float(logits[1].abs().max())):
+        fail(f"{what}: card and CPU prefill logits differ by {err}")
+    return err
+
+
+# --------------------------------------------------------------------------
+# phase 12: the encoder-decoder and VLM families
+# --------------------------------------------------------------------------
+
+SEAMLESS = "seamless-m4t-medium"
+QWEN2_VL = "qwen2-vl-72b"
+# qwen2-vl-72b cut to 4 of its 80 layers: 6.0 B parameters, 24 GB in f32
+QWEN2_VL_LAYERS = 4
+# seamless: 4 requests of 4096 frame embeddings (the stub's serving shape,
+# src/repro/launch/specs.py:118) and 16-token prompts, 16 decode steps
+ENC_BATCH, ENC_FRAMES, DEC_PROMPT = 4, 4096, 16
+DEC_STEPS, DEC_MAX_SEQ = 16, 128
+# qwen2-vl's multimodal request: a 32 x 32 patch grid (frontend_tokens
+# 1024) and 3072 text tokens, 4096 positions; 8 decode steps
+VLM_GRID, VLM_TEXT, VLM_STEPS = (32, 32), 3072, 8
+SMOKE_GRID = (2, 4)                   # the smoke frontend's 8 patches
+
+
+def flash_fwd_at(torch, FA, ref, BH, BKH, S, hd, causal, what, seed=None):
+    """The bf16 forward kernel at a model path's shape (kernel layout, B
+    = 1 in SDPA's) against ref.flash_fwd within TOL_BF16_O / TOL_LSE, and
+    its device ms (CUDA events) beside the plain version's and one
+    scaled_dot_product_attention call's on the same inputs. Bound: 4 hd
+    operations per (q, k) pair and q head at the bf16 rate, against q, k,
+    v and o in bf16 and lse in f32 once. Returns the row and (q, k, v, do,
+    o, lse)."""
+    import torch.nn.functional as F
+    q, k, v, do = _flash_inputs(torch, BH, BKH, S, hd, torch.bfloat16,
+                                BH + S + hd if seed is None else seed)
+    rep = BH // BKH
+    o, lse = FA.flash_fwd_cuda(q, k, v, causal)
+    wo, wl = ref.flash_fwd(q, k, v, causal, rep)
+    err = _close(torch, o, wo, *FA.TOL_BF16_O, f"{what}: flash_fwd bf16")
+    lse_err = _close(torch, lse, wl, *FA.TOL_LSE, f"{what}: flash lse")
+    del wo, wl
+    # SDPA's [1, heads, S, hd]: q head h reads kv head h // rep, as the
+    # kernel's bh // rep does
+    q4, k4, v4 = (t.view(1, -1, S, hd) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                              enable_gqa=rep > 1)
+    sd_err = float((sdpa().float().reshape(BH, S, hd) - o.float())
+                   .abs().max())
+    ms = cuda_ms(torch, lambda: FA.flash_fwd_cuda(q, k, v, causal), 10)
+    plain = cuda_ms(torch, lambda: ref.flash_fwd(q, k, v, causal, rep), 2,
+                    warmup=1)
+    lib = cuda_ms(torch, sdpa, 20)
+    pairs = S * (S + 1) // 2 if causal else S * S
+    ops_ = 4.0 * hd * pairs * BH
+    b, by = bound_ms(2 * (2 * BH + 2 * BKH) * S * hd + 4 * BH * S, ops_,
+                     BF16_OPS_PER_S)
+    row = {"shape": [BH, BKH, S, hd], "causal": causal, "dtype": "bfloat16",
+           "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by,
+           "library_ms": lib, "library_is": "sdpa forward",
+           "gflop": ops_ / 1e9, "tflops": ops_ / ms / 1e9,
+           "share_of_bound": b / ms, "max_abs_err": err,
+           "lse_max_abs_err": lse_err, "max_abs_diff_vs_sdpa": sd_err}
+    print(f"  {what}: flash_fwd (BH {BH}, BKH {BKH}, S {S}, hd {hd}, "
+          f"{'causal' if causal else 'non-causal'}) bf16: kernel "
+          f"{ms * 1e3:.1f} us ({row['tflops']:.1f} TFLOP/s, "
+          f"{100 * b / ms:.1f} % of the bound), plain {plain:.2f} ms, sdpa "
+          f"{lib * 1e3:.1f} us, bound {b * 1e3:.1f} us ({by}, "
+          f"{row['gflop']:.0f} GFLOP); max abs err {err:.2e} (lse "
+          f"{lse_err:.2e}), vs sdpa {sd_err:.2e}", flush=True)
+    return row, (q, k, v, do, o, lse)
+
+
+def encdec_serve(torch, cfg, params, batch, steps, device="cuda"):
+    """The encoder-decoder family's serving path: one probed prefill
+    (`make_prefill_step` with ENCDEC_PROBES) from a cache of max_seq
+    DEC_MAX_SEQ and enc_seq the frame count, then `steps` probed decode
+    steps (`make_decode_step`, greedy) from its cache. Returns the runtime,
+    the steps, the prefill logits and cache, the maps after the prefill
+    (a copy) and at the end, the tokens and the events per step."""
+    from repro_torch.core.runtime import BpftimeRuntime
+    from repro_torch.launch import serve as L
+    from repro_torch.models import registry as MR
+    from repro_torch.serve.steps import make_decode_step, make_prefill_step
+    rt = BpftimeRuntime()
+    L.attach_serve_probes(rt, L.family_probes(cfg))
+    prefill, decode = make_prefill_step(cfg, rt), make_decode_step(cfg, rt)
+    maps = rt.init_device_maps(device)
+    cache = MR.make_cache(cfg, batch["tokens"].shape[0], DEC_MAX_SEQ,
+                          torch.float32, device,
+                          enc_seq=batch["enc_embeds"].shape[1])
+    logits, cache0, maps = prefill(params, batch, cache, maps)
+    out = {"rt": rt, "prefill": prefill, "decode": decode,
+           "logits": logits, "cache": cache0,
+           "maps_prefill": {n: {f: a.clone() for f, a in st.items()}
+                            for n, st in maps.items()},
+           "events": [prefill.last[0].shape[0]]}
+    first = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
+    nxt, cache, toks = first, cache0, [first[:, 0].tolist()]
+    for step in range(steps):
+        t, _, cache, maps = decode(params, nxt, cache, maps, step)
+        out["events"].append(decode.last[0].shape[0])
+        nxt = t[:, None].long()
+        toks.append(t.tolist())
+    out.update(maps=maps, tokens=toks)
+    return out
+
+
+def check_encdec_path(cfg, run, launches, what, flash_per_prefill):
+    """The encoder-decoder path's counts: the serving kernels launched,
+    tensor_stats once per event, 1 + enc_layers events in the prefill
+    (enc.in, enc.block) and one (decode.logits) a decode step, the flash
+    forward `flash_per_prefill` times; the maps' hist, hash and ring
+    buffer counts; the prefill's and the last decode step's tapes replayed
+    through every mode."""
+    from repro_torch.core.maps import n_hash_items
+    from repro_torch.core.runtime import to_numpy
+    ev = run["events"]
+    if ev[0] != 1 + cfg.enc_layers or any(e != 1 for e in ev[1:]):
+        fail(f"{what}: events per step {ev}, expected "
+             f"{1 + cfg.enc_layers} then 1 a decode step")
+    if any(launches[k] == 0 for k in SERVING_KERNELS):
+        fail(f"{what}: a serving kernel was not launched: {launches}")
+    if launches["tensor_stats"] != sum(ev):
+        fail(f"{what}: tensor_stats launches {launches['tensor_stats']} != "
+             f"events {sum(ev)}")
+    if launches["flash_fwd"] != flash_per_prefill:
+        fail(f"{what}: flash_fwd launched {launches['flash_fwd']} times in "
+             f"a prefill, not {flash_per_prefill}")
+    m = to_numpy(run["maps"])
+    steps = len(ev) - 1
+    hashed = sorted((int(k), v) for k, v in
+                    n_hash_items(m["ed_layer_hash"]).items())
+    if int(m["ed_rms_hist"]["bins"].sum()) != cfg.enc_layers or \
+            int(m["ed_in_rms_hist"]["bins"].sum()) != 1 or \
+            hashed != [(i, 1) for i in range(cfg.enc_layers)] or \
+            int(m["ed_logits_rb"]["head"][0]) != steps:
+        fail(f"{what}: ENCDEC_PROBES' maps do not count one enc.in, one "
+             f"enc.block a layer and one record a decode step: hist "
+             f"{int(m['ed_rms_hist']['bins'].sum())}, hash {hashed}")
+    rt = run["rt"]
+    replay_tape(rt, run["prefill"].last[:3], run["maps_prefill"],
+                f"{what} prefill tape")
+    replay_tape(rt, run["decode"].last[:3], run["maps"], what)
+
+
+def seamless_whole(torch, ops, FA, ref, registry, device="cuda"):
+    """(a): seamless-m4t-medium whole (12 + 12 layers, every published
+    width), bf16 compute, f32 parameters drawn on the card from seed 0."""
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import registry as MR
+    from repro_torch.optim import tree_leaves
+    from repro_torch.serve.steps import make_decode_step
+    cfg = registry.get(SEAMLESS)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = MR.init_params(cfg, gen, device)
+    n = sum(p.numel() for p in tree_leaves(params))
+    batch = {"enc_embeds": torch.randn(ENC_BATCH, ENC_FRAMES, cfg.d_model,
+                                       generator=gen, device=device),
+             "tokens": torch.randint(0, cfg.vocab_size,
+                                     (ENC_BATCH, DEC_PROMPT), generator=gen,
+                                     device=device)}
+    torch.cuda.synchronize()
+    print(f"  (a) {SEAMLESS} whole: {cfg.enc_layers} + {cfg.dec_layers} "
+          f"layers, {n / 1e9:.3f} B parameters, {4 * n / 1e9:.2f} GB in "
+          f"f32, drawn in {time.perf_counter() - t0:.1f} s; {ENC_BATCH} "
+          f"requests of {ENC_FRAMES} frames and {DEC_PROMPT} tokens",
+          flush=True)
+    what = "phase 12 (a)"
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = encdec_serve(torch, cfg, params, batch, DEC_STEPS, device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    logits = run["logits"]
+    if tuple(logits.shape) != (ENC_BATCH, DEC_PROMPT, cfg.padded_vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"{what}: prefill logits shape {tuple(logits.shape)} or not "
+             "finite")
+    if any(not 0 <= t < cfg.vocab_size for ts in run["tokens"] for t in ts):
+        fail(f"{what}: a generated token lies outside the vocabulary")
+    check_encdec_path(cfg, run, launches, what, cfg.enc_layers)
+    print(f"  {what}: a probed prefill and {DEC_STEPS} probed decode steps "
+          f"in {wall:.2f} s, events {run['events'][0]} + {DEC_STEPS} x 1; "
+          f"kernels {json.dumps(launches)}; maps and replays checked",
+          flush=True)
+    out = {"params_b": n / 1e9, "wall_s": wall, "launches": launches,
+           "events": run["events"], "peak_gb_path":
+           torch.cuda.max_memory_allocated() / 1e9}
+    cache0, maps0 = run["cache"], run["maps"]
+    del run, logits
+
+    # the prefill: host clock (synchronised) and CUDA events
+    def one_prefill():
+        return MR.prefill_fn(params, batch, MR.make_cache(
+            cfg, ENC_BATCH, DEC_MAX_SEQ, torch.float32, device,
+            enc_seq=ENC_FRAMES), cfg)
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_prefill()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    out["prefill_host_ms"] = host
+    out["prefill_device_ms"] = cuda_ms(torch, one_prefill, 3, warmup=0)
+
+    # decode steps from the prefill's cache, probed and not, in turns
+    from repro_torch.launch import serve as L
+    from repro_torch.core.runtime import BpftimeRuntime
+    rt = BpftimeRuntime()
+    L.attach_serve_probes(rt, L.family_probes(cfg))
+    steps = {"probed": make_decode_step(cfg, rt),
+             "unprobed": make_decode_step(cfg)}
+    first = torch.zeros(ENC_BATCH, 1, dtype=torch.long, device=device)
+    ms = {"probed": [], "unprobed": []}
+    for label in ("probed", "unprobed", "unprobed", "probed"):
+        dec, maps = steps[label], (maps0 if label == "probed" else {})
+        nxt, cache = first, cache0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for step in range(DEC_STEPS):
+            t, _, cache, maps = dec(params, nxt, cache, maps, step)
+            nxt = t[:, None].long()
+        torch.cuda.synchronize()
+        ms[label].append((time.perf_counter() - t0) * 1e3 / DEC_STEPS)
+    out["decode_ms_per_step"] = ms
+
+    # one probed pass (prefill and 16 decode steps) under the profiler
+    groups = {"flash kernels": ("flash_",) + tuple(f"sm90::{k}"
+                                                   for k in FLASH_SM90),
+              **PROBE_GROUPS}
+    pwall, by_group, flash, col, spans = profiled(
+        torch, lambda: encdec_serve(torch, cfg, params, batch, DEC_STEPS,
+                                    device), groups, "flash kernels",
+        ranges={"encode": (ED, "encode")})
+    busy = sum(by_group.values()) / 1e3
+    enc_ms = spans["ranges"]["encode"]["device_ms"]
+    flash_ms = by_group["flash kernels"] / 1e3
+    out.update(profiled_wall_ms=pwall * 1e3, device_busy_ms=busy,
+               device_busy_share=busy / 1e3 / pwall,
+               device_ms_by_group={g: v / 1e3 for g, v in by_group.items()},
+               encoder_device_ms=enc_ms, flash_device_ms=flash_ms,
+               flash_share_of_encoder=flash_ms / enc_ms if enc_ms
+               else None,
+               flash_kernels_device=flash, collector_ops=col,
+               casts_device_ms=spans["casts_device_ms"])
+    out["flash_fwd"] = flash_fwd_at(
+        torch, FA, ref, ENC_BATCH * cfg.num_heads,
+        ENC_BATCH * cfg.num_kv_heads, ENC_FRAMES, cfg.hd, False, what)[0]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  {what}: prefill {', '.join(f'{h:.1f}' for h in host)} ms "
+          f"(host), {out['prefill_device_ms']:.1f} ms (CUDA events); the "
+          f"encoder {enc_ms:.1f} ms of device, the flash kernels "
+          f"{flash_ms:.2f} ms of it "
+          f"({100 * (out['flash_share_of_encoder'] or 0):.1f} %); "
+          f"decode ms a step probed "
+          f"{', '.join(f'{m:.2f}' for m in ms['probed'])}, unprobed "
+          f"{', '.join(f'{m:.2f}' for m in ms['unprobed'])}; device busy "
+          f"{100 * out['device_busy_share']:.1f} % of a profiled pass; "
+          f"casts {spans['casts_device_ms']:.1f} ms; peak memory "
+          f"{out['peak_gb']:.1f} GB", flush=True)
+    return out
+
+
+def vlm_multimodal(torch, ops, cfg, params, grid, n_text, steps, what,
+                   device="cuda", flash_per_prefill=None, counted=True,
+                   warm_reps=0):
+    """One multimodal request at batch 1: grid[0] x grid[1] frontend
+    embeddings (cfg.frontend_tokens) and n_text tokens with their M-RoPE
+    grid ids, made from seed 0 on the host; prefilled through
+    `registry.prefill_fn` (the counts set to 0 just before and read just
+    after; flash_fwd must have launched `flash_per_prefill` times), then
+    `steps` probed decode steps with the family's probes (counted again:
+    the serving kernels, tensor_stats once per event; counted=False, for a
+    run on the CPU, checks only the events), the last tape replayed. With
+    warm_reps, the prefill is timed again that many times (host clock,
+    synchronised) and by CUDA events."""
+    from repro_torch.core.runtime import BpftimeRuntime
+    from repro_torch.launch import serve as L
+    from repro_torch.models import layers as ML, registry as MR
+    from repro_torch.serve.steps import make_decode_step
+    rows, cols = grid
+    if rows * cols != cfg.frontend_tokens:
+        fail(f"{what}: a {rows} x {cols} grid is not the frontend's "
+             f"{cfg.frontend_tokens} embeddings")
+    gen = torch.Generator()
+    gen.manual_seed(SEED)
+    S = rows * cols + n_text
+    batch = {"embeds": torch.randn(1, rows * cols, cfg.d_model,
+                                   generator=gen).to(device),
+             "tokens": torch.randint(0, cfg.vocab_size, (1, n_text),
+                                     generator=gen).to(device),
+             "positions": ML.mrope_grid_positions(rows, cols, n_text, 1,
+                                                  device)}
+
+    def one_prefill():
+        return MR.prefill_fn(params, batch, MR.make_cache(
+            cfg, 1, S + steps, torch.float32, device), cfg)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = one_prefill()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    pre = ops.launch_counts()
+    if tuple(logits.shape) != (1, S, cfg.padded_vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"{what}: prefill logits shape {tuple(logits.shape)} or not "
+             "finite")
+    if flash_per_prefill is not None and pre["flash_fwd"] != \
+            flash_per_prefill:
+        fail(f"{what}: flash_fwd launched {pre['flash_fwd']} times in the "
+             f"{S}-position prefill, not {flash_per_prefill}")
+    rt = BpftimeRuntime()
+    L.attach_serve_probes(rt, L.family_probes(cfg))
+    decode = make_decode_step(cfg, rt)
+    maps = rt.init_device_maps(device)
+    nxt = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
+    toks, events = [nxt[:, 0].tolist()], 0
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for step in range(steps):
+        t, _, cache, maps = decode(params, nxt, cache, maps, step)
+        events += decode.last[0].shape[0]
+        nxt = t[:, None].long()
+        toks.append(t.tolist())
+    torch.cuda.synchronize()
+    dec = ops.launch_counts()
+    if counted and any(dec[k] == 0 for k in SERVING_KERNELS):
+        fail(f"{what}: a serving kernel was not launched: {dec}")
+    if (counted and dec["tensor_stats"] != events) or \
+            events != steps * events_per_step(cfg):
+        fail(f"{what}: tensor_stats launches {dec['tensor_stats']}, events "
+             f"{events}, expected {steps} x {events_per_step(cfg)}")
+    if any(not 0 <= t < cfg.vocab_size for ts in toks for t in ts):
+        fail(f"{what}: a generated token lies outside the vocabulary")
+    replay_tape(rt, decode.last[:3], maps, what)
+    out = {"positions": S, "first_prefill_ms": first_ms,
+           "launches_prefill": pre, "launches": dec, "events": events,
+           "tokens": toks, "logits": logits, "maps": maps}
+    if warm_reps:
+        out["prefill_host_ms"] = []
+        for _ in range(warm_reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one_prefill()
+            torch.cuda.synchronize()
+            out["prefill_host_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["prefill_device_ms"] = cuda_ms(torch, one_prefill, warm_reps,
+                                           warmup=0)
+    return out
+
+
+def qwen2vl_full(torch, ops, FA, ref, registry, device="cuda"):
+    """(b): qwen2-vl-72b at full width, 4 of its 80 layers, bf16 compute,
+    f32 parameters drawn on the card from seed 0: (i) phase 3's serving
+    through ServeEngine, text-only; (ii) a multimodal request."""
+    import dataclasses
+    from repro_torch.models import layers as ML, registry as MR
+    from repro_torch.optim import tree_leaves
+    full = registry.get(QWEN2_VL)
+    cfg = dataclasses.replace(full, num_layers=QWEN2_VL_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = MR.init_params(cfg, gen, device)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in tree_leaves(params))
+    print(f"  (b) {QWEN2_VL}, {QWEN2_VL_LAYERS} of its {full.num_layers} "
+          f"layers (the whole model's "
+          f"{full.param_counts()['total'] / 1e9:.1f} B parameters do not "
+          f"fit one card): {n / 1e9:.2f} B parameters, {4 * n / 1e9:.1f} "
+          f"GB in f32, drawn in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    engine, _, out = family_serve(torch, ops, cfg, params,
+                                  "phase 12 (b)(i) text-only", device)
+    del engine
+    out["params_b"] = n / 1e9
+    out["timing"] = timing(torch, cfg, params, ranges={
+        "attention_block": (ML, "attention_block")})
+    what = "phase 12 (b)(ii)"
+    mm = vlm_multimodal(torch, ops, cfg, params, VLM_GRID, VLM_TEXT,
+                        VLM_STEPS, what, device, cfg.num_layers, warm_reps=2)
+    del mm["logits"], mm["maps"]
+    host, dev_ms = mm["prefill_host_ms"], mm["prefill_device_ms"]
+    print(f"  {what}: a {mm['positions']}-position prefill ({VLM_GRID[0]} x "
+          f"{VLM_GRID[1]} patches, {VLM_TEXT} tokens, grid ids) "
+          f"{mm['first_prefill_ms']:.1f} ms cold, "
+          f"{', '.join(f'{h:.1f}' for h in host)} ms warm (host), "
+          f"{dev_ms:.1f} ms (CUDA events), flash_fwd launched "
+          f"{mm['launches_prefill']['flash_fwd']} times; {VLM_STEPS} probed "
+          f"decode steps, {mm['events']} events, kernels "
+          f"{json.dumps(mm['launches'])}; replays checked", flush=True)
+    out["multimodal"] = mm
+    out["flash_fwd"] = flash_fwd_at(
+        torch, FA, ref, cfg.num_heads, cfg.num_kv_heads, mm["positions"],
+        cfg.hd, True, what)[0]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  (b) peak memory {out['peak_gb']:.1f} GB", flush=True)
+    return out
+
+
+def new_families_card_vs_cpu(torch, ops, registry, device="cuda"):
+    """(c): seamless and qwen2-vl at smoke width (f32, TF32 off) on the
+    card and on the CPU from the same weights. seamless: 2 requests of
+    4096 frames (the f32 flash kernel, non-causal, in each encoder layer on
+    the card) and 8 tokens, a probed prefill and 4 probed decode steps;
+    qwen2-vl: phase 3's serving, then a multimodal request (2 x 4 patches,
+    6 tokens, grid ids) and 4 probed decode steps. Tokens equal, maps bit
+    for bit but the ring buffers' stat lanes (within STATS_TOL or 1),
+    prefill logits within FAMILY_LOGIT_TOL."""
+    from repro_torch.models import registry as MR
+    out = {}
+    small = registry.smoke(SEAMLESS)
+    what = f"phase 12 (c) {SEAMLESS} at smoke width"
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    params = MR.init_params(small, gen, device)
+    params_cpu = to_cpu(params)
+    gen = torch.Generator()
+    gen.manual_seed(SEED)
+    batch_cpu = {"enc_embeds": torch.randn(2, ENC_FRAMES, small.d_model,
+                                           generator=gen),
+                 "tokens": torch.randint(0, small.vocab_size, (2, 8),
+                                         generator=gen)}
+    batch = {k: v.to(device) for k, v in batch_cpu.items()}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    run = encdec_serve(torch, small, params, batch, 4, device)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_encdec_path(small, run, launches, what, small.enc_layers)
+    run_cpu = encdec_serve(torch, small, params_cpu, batch_cpu, 4, "cpu")
+    if run["tokens"] != run_cpu["tokens"]:
+        fail(f"{what}: tokens differ between card and CPU")
+    stat = maps_card_vs_cpu(run["maps"], run_cpu["maps"], "ed_logits_rb",
+                            what)
+    err = logits_close([run["logits"].cpu(), run_cpu["logits"]], what)
+    print(f"  {what}: card and CPU tokens equal, maps bit for bit (ringbuf "
+          f"stat lanes within {stat:.0f} of 2^16), prefill logits within "
+          f"{err:.2e}; the f32 flash kernel launched "
+          f"{launches['flash_fwd']} times (non-causal)", flush=True)
+    out[SEAMLESS] = {"launches": launches, "events": run["events"],
+                     "ringbuf_stat_max_diff": stat,
+                     "logits_max_abs_diff": err}
+    del run, run_cpu
+
+    small = registry.smoke(QWEN2_VL)
+    what = f"phase 12 (c) {QWEN2_VL} at smoke width"
+    params, params_cpu, res = serve_card_vs_cpu(torch, ops, small, what,
+                                                device)
+    res.pop("prompt")
+    mm = [vlm_multimodal(torch, ops, small, p, SMOKE_GRID, 6, 4, what, dev,
+                         counted=dev != "cpu")
+          for p, dev in ((params, device), (params_cpu, "cpu"))]
+    if mm[0]["tokens"] != mm[1]["tokens"]:
+        fail(f"{what}: the multimodal request's tokens differ between card "
+             "and CPU")
+    stat = maps_card_vs_cpu(mm[0]["maps"], mm[1]["maps"], "sv_logits_rb",
+                            what)
+    err = logits_close([mm[0]["logits"].cpu(), mm[1]["logits"]], what)
+    print(f"  {what}: served tokens and maps equal on card and CPU; the "
+          f"multimodal request's tokens equal, maps bit for bit (stat lanes "
+          f"within {stat:.0f}), prefill logits within {err:.2e}", flush=True)
+    launches = {k: res["launches"][k] + mm[0]["launches"][k]
+                for k in res["launches"]}
+    out[QWEN2_VL] = {**res, "launches": launches,
+                     "multimodal_logits_max_abs_diff": err,
+                     "multimodal_ringbuf_stat_max_diff": stat}
     return out
 
 
@@ -3153,14 +3664,18 @@ def main(argv=None):
     bf16, f32 = torch.bfloat16, torch.float32
     print("phase 2: kernels against their plain versions", flush=True)
     # phase 11's shapes too: llama4-scout's block and logits, the router's
-    # moe.load ([16]) and moe.drops ([1]), mamba2's block and logits
+    # moe.load ([16]) and moe.drops ([1]), mamba2's block and logits; and
+    # phase 12's: seamless's enc.in/enc.block and decode.logits, qwen2-vl's
+    # block and logits
     ts_err, ts_rows = check_tensor_stats(torch, TS, ref, ref.to_fx, [
         ((4, 1, d), bf16, False), ((4, 1, d), bf16, True),
         ((4, 1, pv), f32, True), ((2, 4096, d), bf16, True),
         ((1 << 26,), f32, True), ((1,), f32, False),
         ((4, 1, 5120), bf16, False), ((16,), f32, False),
         ((4, 1, 202240), f32, True), ((4, 1, 1536), bf16, False),
-        ((4, 1, 50432), f32, True)])
+        ((4, 1, 50432), f32, True), ((4, 4096, 1024), bf16, True),
+        ((4, 1, 256256), f32, True), ((4, 1, 8192), bf16, False),
+        ((4, 1, 152064), f32, False)])
     tomb = dict(tombstones=True, full=False)
     hash_rows = check_hash(torch, HU, ref, M, [
         ("path", 256, L2, dict(tombstones=False, full=False)),
@@ -3170,11 +3685,14 @@ def main(argv=None):
         ("global 4096", 16384, 4096, tomb),
         ("moe path", 256, 17, dict(tombstones=False, full=False)),
         ("ssm path", 256, 145, dict(tombstones=False, full=False)),
+        ("encdec prefill", 64, 13, dict(tombstones=False, full=False)),
+        ("vlm path", 256, 9, dict(tombstones=False, full=False)),
     ])
     rb_rows = check_ringbuf(torch, RB, ref, [
         ("path", 64, L2, 4), ("B<cap", 64, 40, 4), ("B>cap", 64, 4096, 4),
         ("empty", 64, 0, 4), ("moe path", 64, 17, 4),
-        ("ssm path", 64, 145, 4),
+        ("ssm path", 64, 145, 4), ("encdec decode", 64, 1, 4),
+        ("vlm path", 64, 9, 4),
     ])
     rb_rows[0]["apply_device_ops"] = ringbuf_apply_ops(torch, RB, L2)
     corpus = [(p.stem, json.loads(p.read_text()))
@@ -3389,6 +3907,31 @@ def main(argv=None):
     p11 = {k: sum(r["launches"][k] for r in p11_runs)
            for k in p11_runs[0]["launches"]}
 
+    # ---- phase 12
+    print("phase 12: the encoder-decoder and VLM families: seamless-m4t-"
+          f"medium whole, qwen2-vl-72b at full width ({QWEN2_VL_LAYERS} of "
+          "80 layers) with M-RoPE, and both at smoke width on the card and "
+          "the CPU", flush=True)
+    t12 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    encvlm = {"seamless": seamless_whole(torch, ops, FA, ref, registry)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    encvlm["qwen2_vl"] = qwen2vl_full(torch, ops, FA, ref, registry)
+    gc.collect()
+    torch.cuda.empty_cache()
+    encvlm["smoke"] = new_families_card_vs_cpu(torch, ops, registry)
+    encvlm["phase_s"] = time.perf_counter() - t12
+    print(f"  phase 12 took {encvlm['phase_s']:.1f} s", flush=True)
+    p12_runs = [encvlm["seamless"], encvlm["qwen2_vl"],
+                encvlm["qwen2_vl"]["multimodal"],
+                *encvlm["smoke"].values()]
+    p12 = {k: sum(r["launches"][k] for r in p12_runs)
+           for k in p12_runs[0]["launches"]}
+    p12["flash_fwd"] += encvlm["qwen2_vl"]["multimodal"][
+        "launches_prefill"]["flash_fwd"]
+
     # ---- report
     def pick(rows_, key, val):
         return next(r for r in rows_ if r[key] == val)
@@ -3409,7 +3952,8 @@ def main(argv=None):
                 "library_ms": row.get("library_ms"),
                 "library_is": row.get("library_is"),
                 "phase9_launches": p9[name], "phase10_launches": p10[name],
-                "phase11_launches": p11[name], "shapes": shapes}
+                "phase11_launches": p11[name],
+                "phase12_launches": p12[name], "shapes": shapes}
 
     report = {"kernels": [
         entry("tensor_stats", "tensor_stats.cu",
@@ -3427,7 +3971,9 @@ def main(argv=None):
               ["table_interp"], 0, in_main, interp_rows),
         entry("flash_fwd", "flash_attention_sm90.cuh",
               "src/repro/kernels/flash_attention.py:35", tl["flash_fwd"],
-              fa_fwd["max_abs_err"], fa_fwd, [fa_fwd]),
+              fa_fwd["max_abs_err"], fa_fwd,
+              [fa_fwd, encvlm["seamless"]["flash_fwd"],
+               encvlm["qwen2_vl"]["flash_fwd"]]),
         entry("flash_bwd", "flash_attention_sm90.cuh",
               "src/repro/kernels/flash_attention.py:130", tl["flash_bwd"],
               fa_bwd["max_abs_err"], fa_bwd, [fa_bwd]),
@@ -3437,7 +3983,7 @@ def main(argv=None):
                  **times},
         "live": live,
         "train": train, "fleet": fleet, "aggregator": aggregator,
-        "fuzz": fuzz, "families": families,
+        "fuzz": fuzz, "families": families, "encdec_vlm": encvlm,
         "train_launches_of_serving_kernels": {
             k: tl[k] for k in SERVING_KERNELS},
         "flash_sm90_build": sm90_build, "probe_build": probe_build}

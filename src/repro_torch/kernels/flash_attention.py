@@ -1,5 +1,7 @@
-"""Causal GQA flash attention, forward and backward -- the attention of
-every layer on the training path (sequences longer than 2048).
+"""GQA flash attention, causal or not, forward and backward -- the
+attention of every layer on the training path and of the prefills above
+2048 positions (causal), and of the encoder-decoder family's encoder above
+2048 frames (non-causal).
 
 Replaces the Pallas kernels of `src/repro/kernels/flash_attention.py`:
 `_fwd_kernel` (:35, through `flash_fwd` :79) becomes `repro_flash_fwd`;

@@ -79,8 +79,8 @@ def table_interp_run(spec_key, table, rows, maps, aux, *,
 
 
 def flash_attention(q, k, v, causal: bool = True):
-    """Causal GQA attention on q [B, S, H, hd], k and v [B, S, KH, hd];
-    returns o [B, S, H, hd] in q's type, differentiable. The inputs go to
+    """GQA attention, causal or not, on q [B, S, H, hd], k and v [B, S,
+    KH, hd]; returns o [B, S, H, hd] in q's type, differentiable. The inputs go to
     the kernel layout (q head b*H + h reads kv head b*KH + h // (H // KH),
     the grouping of `models.layers._grouped`) and through
     `FlashAttention`: the kernels for a CUDA tensor, the plain versions for

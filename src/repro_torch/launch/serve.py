@@ -6,10 +6,14 @@ tests attach.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --requests 8 --max-new 8 [--admit-limit 12] [--device cpu]
 
-Every decoder family serves (dense, MoE, SSM, hybrid). The SSD prefill of
-mamba2 and jamba takes only prompts whose length is a multiple of the
-smoke config's chunk (2), as the JAX launcher does: with the default
-requests both stop on the third, a 3-token prompt.
+Every decoder family serves (dense, MoE, SSM, hybrid, and the VLM
+text-only). The SSD prefill of mamba2 and jamba takes only prompts whose
+length is a multiple of the smoke config's chunk (2), as the JAX launcher
+does: with the default requests both stop on the third, a 3-token prompt.
+The engine builds a prefill batch from tokens alone, so the
+encoder-decoder family (seamless-m4t-medium) stops on its first prefill
+with KeyError: 'enc_embeds', as the JAX launcher does; that family serves
+through `registry.prefill_fn` with `enc_embeds` and `serve/steps.py`.
 """
 from __future__ import annotations
 
@@ -64,7 +68,7 @@ _RB_LOGITS = """
     stxdw [r10-16], r6
     ldxdw r6, [r1+ctx:absmax]
     stxdw [r10-8], r6
-    lddw r1, map:sv_logits_rb
+    lddw r1, map:{map}
     mov r2, r10
     add r2, -32
     mov r3, 32
@@ -80,8 +84,8 @@ SERVE_PROBES = [
      ("sv_key_hash", "hash", 256, 4), "uprobe:block"),
     ("sv_hist", _HIST_RMS.format(map="sv_rms_hist"),
      ("sv_rms_hist", "log2hist", 64, 4), "uretprobe:block"),
-    ("sv_rb", _RB_LOGITS, ("sv_logits_rb", "ringbuf", 64, 4),
-     "probe:logits"),
+    ("sv_rb", _RB_LOGITS.format(map="sv_logits_rb"),
+     ("sv_logits_rb", "ringbuf", 64, 4), "probe:logits"),
 ]
 
 
@@ -121,10 +125,29 @@ SSM_PROBES = [
      ("ssm_rms_hist", "log2hist", 64, 4), "probe:ssm.out"),
 ]
 
+# The encoder-decoder family's sites: an rms LOG2HIST of the frame
+# embeddings (enc.in) and of each encoder layer's output (enc.block), a
+# per-layer HASH counter of the encoder layers, all filled by a probed
+# prefill; and a RINGBUF record of each decode step's logits
+# (decode.logits). SERVE_PROBES' block and logits sites never fire here.
+ENCDEC_PROBES = [
+    ("ed_in_hist", _HIST_RMS.format(map="ed_in_rms_hist"),
+     ("ed_in_rms_hist", "log2hist", 64, 4), "probe:enc.in"),
+    ("ed_hist", _HIST_RMS.format(map="ed_rms_hist"),
+     ("ed_rms_hist", "log2hist", 64, 4), "uretprobe:enc.block"),
+    ("ed_hash", _COUNT.format(map="ed_layer_hash"),
+     ("ed_layer_hash", "hash", 64, 4), "uretprobe:enc.block"),
+    ("ed_rb", _RB_LOGITS.format(map="ed_logits_rb"),
+     ("ed_logits_rb", "ringbuf", 64, 4), "probe:decode.logits"),
+]
+
 
 def family_probes(cfg) -> list:
-    """SERVE_PROBES, plus MOE_PROBES where a layer routes to experts and
+    """ENCDEC_PROBES for the encoder-decoder family; otherwise
+    SERVE_PROBES, plus MOE_PROBES where a layer routes to experts and
     SSM_PROBES where a layer is a mamba mixer."""
+    if cfg.family == "encdec":
+        return ENCDEC_PROBES
     layers = range(cfg.superblock)
     return (SERVE_PROBES
             + (MOE_PROBES if any(cfg.ffn_kind(j) == "moe" for j in layers)

@@ -1,6 +1,7 @@
-"""Core model layers: norms, RoPE, GQA attention (grouped-head einsums --
-KV is never materialized repeated; a chunked online-softmax formulation
-for long sequences), SwiGLU/GeLU MLP, embeddings.
+"""Core model layers: norms, RoPE/M-RoPE, GQA attention (grouped-head
+einsums -- KV is never materialized repeated; a chunked online-softmax
+formulation for long sequences; cross attention over an encoder's k and
+v), SwiGLU/GeLU MLP, embeddings.
 
 Layouts follow the JAX package at every public function: weights are
 [in, out] and used as `x @ w`; q/k/v are [B, S, H, hd]. Parameters are
@@ -66,17 +67,39 @@ def _rope_freqs(cfg: ModelConfig, device):
 
 
 def apply_rope(x, positions, cfg: ModelConfig):
-    """x: [..., S, H, hd]; positions: [..., S] integer."""
-    if cfg.rope_kind == "mrope":
-        raise NotImplementedError("M-RoPE comes with the VLM slice "
-                                  "(ROADMAP A13)")
+    """x: [..., S, H, hd]; positions: [..., S] integer, or [..., S, 3] for
+    M-RoPE (Qwen2-VL): the hd/2 frequency slots split into
+    `cfg.mrope_sections` (temporal, height, width), each slot turning by
+    its axis' position."""
     freqs = _rope_freqs(cfg, x.device)                   # [hd/2]
-    ang = positions.to(F32)[..., None] * freqs          # [..., S, hd/2]
+    if cfg.rope_kind == "mrope":
+        if positions.ndim != x.ndim - 1:
+            raise ValueError("M-RoPE needs positions [..., S, 3]")
+        axis = torch.cat([torch.full((n,), i) for i, n in
+                          enumerate(cfg.mrope_sections)]).to(x.device)
+        # the axis' position in f32, then times the frequency (JAX's order)
+        ang = positions.to(F32)[..., axis] * freqs      # [..., S, hd/2]
+    else:
+        ang = positions.to(F32)[..., None] * freqs      # [..., S, hd/2]
     cos = torch.cos(ang)[..., None, :]                  # [..., S, 1, hd/2]
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x.to(F32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def mrope_grid_positions(rows: int, cols: int, n_text: int, batch: int = 1,
+                         device="cpu"):
+    """M-RoPE ids [batch, rows * cols + n_text, 3] (temporal, height,
+    width) for a frontend of rows x cols patch embeddings followed by text:
+    a patch at (r, c) gets (0, r, c), the i-th text token
+    max(rows, cols) + i on all three axes."""
+    r = torch.arange(rows).repeat_interleave(cols)
+    c = torch.arange(cols).repeat(rows)
+    patches = torch.stack([torch.zeros_like(r), r, c], dim=-1)
+    text = (max(rows, cols) + torch.arange(n_text))[:, None].expand(-1, 3)
+    ids = torch.cat([patches, text]).to(torch.int32)
+    return ids.expand(batch, -1, -1).to(device)
 
 
 # --------------------------------------------------------------------------
@@ -202,12 +225,20 @@ def _write_cache(c, u, start):
 
 
 def attention_block(p, x, positions, cfg: ModelConfig, *, cache=None,
-                    cache_pos=None):
+                    cache_pos=None, cross_kv=None):
     """Full attention sublayer. Modes:
       train/prefill: cache=None (prefill returns fresh kv for caching)
       decode: cache=(k,v) [B,Smax,KH,hd], cache_pos [B] current length
+      cross: cross_kv=(k,v) [B,Se,KH,hd] precomputed from the encoder (q
+        from wq alone: no bias, no rope; new_cache_kv is None)
     Returns (out, new_cache_kv)."""
     B, S, _ = x.shape
+    if cross_kv is not None:
+        H, hd = cfg.num_heads, cfg.hd
+        q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, hd)
+        o = full_attention(q, *cross_kv, causal=False)
+        return o.reshape(B, S, H * hd) @ p["wo"].to(x.dtype), None
+
     q, k, v = _qkv(p, x, cfg)
     if cfg.rope_kind != "none":
         q = apply_rope(q, positions, cfg)

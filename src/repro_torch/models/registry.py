@@ -1,8 +1,9 @@
 """Uniform model entry points per family: init / loss / cache / prefill /
 decode, plus carrying parameters over from the JAX package.
 
-Every decoder family (dense, MoE, SSM, hybrid) is in this package; the
-encoder-decoder family raises NotImplementedError.
+Every family of `configs/registry.py` is in this package: the decoder
+families (dense, MoE, SSM, hybrid, VLM) in `transformer.py`, the
+encoder-decoder family in `encdec.py`.
 """
 from __future__ import annotations
 
@@ -11,18 +12,13 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve
-from . import transformer as TF
-
-
-def _check_family(cfg: ModelConfig):
-    if cfg.family == "encdec":
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder family "
-                                  "comes with a later slice (ROADMAP A13)")
+from . import encdec as ED, transformer as TF
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device="cuda"):
-    _check_family(cfg)
+    if cfg.family == "encdec":
+        return ED.init_params(cfg, generator, device)
     return TF.init_params(cfg, generator, device)
 
 
@@ -45,39 +41,52 @@ def cross_entropy(logits, labels, vocab_size=None):
 
 
 def loss_fn(params, batch, cfg: ModelConfig, *, remat=False):
-    """batch: tokens/labels (+ embeds/positions). Returns (loss, metrics)."""
-    _check_family(cfg)
-    logits, _ = TF.forward(params, batch["tokens"], cfg,
-                           embeds=batch.get("embeds"),
-                           positions=batch.get("positions"), mode="train",
-                           remat=remat)
+    """batch: tokens/labels (+ enc_embeds | embeds/positions). Returns
+    (loss, metrics)."""
+    if cfg.family == "encdec":
+        logits = ED.forward_train(params, batch, cfg, remat=remat)
+    else:
+        logits, _ = TF.forward(params, batch["tokens"], cfg,
+                               embeds=batch.get("embeds"),
+                               positions=batch.get("positions"),
+                               mode="train", remat=remat)
     loss = cross_entropy(logits, batch["labels"], cfg.vocab_size)
     return loss, {"loss": loss}
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
-               device="cuda"):
-    _check_family(cfg)
+               device="cuda", *, enc_seq: int = 0):
+    """The serving cache; for the encoder-decoder family its cross cache
+    holds `enc_seq` frames (0: max_seq)."""
+    if cfg.family == "encdec":
+        return ED.init_dec_cache(cfg, batch, max_seq, enc_seq or max_seq,
+                                 dtype, device)
     return TF.init_cache(cfg, batch, max_seq, dtype, device)
 
 
 def prefill_fn(params, batch, cache, cfg: ModelConfig):
-    _check_family(cfg)
+    """batch: tokens (+ enc_embeds | embeds/positions)."""
+    if cfg.family == "encdec":
+        enc_out = ED.encode(params, batch["enc_embeds"], cfg)
+        return ED.prefill(params, batch["tokens"], enc_out, cache, cfg)
     return TF.forward(params, batch["tokens"], cfg,
+                      embeds=batch.get("embeds"),
                       positions=batch.get("positions"), cache=cache,
                       mode="prefill")
 
 
 def decode_fn(params, tokens, cache, cfg: ModelConfig):
     """tokens [B,1] -> (logits [B,1,V], cache)."""
-    _check_family(cfg)
+    if cfg.family == "encdec":
+        return ED.decode_step(params, tokens, cache, cfg)
     return TF.forward(params, tokens, cfg, cache=cache, mode="decode")
 
 
 def params_from_numpy(tree, device="cuda"):
     """Carry parameters across: the JAX package's params (its nested
     dicts/lists, leaves converted to numpy arrays, superblocks stacked on
-    axis 0 under ["stack"]["blocks"][j]) become this package's params, the
+    axis 0 under ["stack"]["blocks"][j], or the encoder-decoder's layers
+    under ["encoder"] and ["decoder"]) become this package's params, the
     same tree of tensors on `device`."""
     dev = resolve(device)
 

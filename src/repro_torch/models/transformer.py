@@ -1,7 +1,7 @@
 """Generic decoder-only stacked-block model.
 
-One implementation covers dense / MoE / SSM (mamba2) / hybrid (jamba) via
-the config's per-layer pattern: layer i = mixer(attn|mamba) + ffn
+One implementation covers dense / MoE / SSM (mamba2) / hybrid (jamba) /
+VLM via the config's per-layer pattern: layer i = mixer(attn|mamba) + ffn
 (dense|moe|none). Layers are grouped into SUPERBLOCKS (cfg.superblock
 consecutive layers, the repeating heterogeneous unit); parameters are
 stacked across superblocks on dim 0, as in the JAX package
@@ -10,8 +10,7 @@ loops over them with `events.probed_scan`, which tags each superblock's
 probe rows with its index.
 
 Probe sites: block (uprobe/uretprobe), attn.out, ssm.out, ffn.out,
-moe.router, moe.load, moe.drops, embed.out, logits. M-RoPE (the VLM
-family) is not in this package yet.
+moe.router, moe.load, moe.drops, embed.out, logits.
 """
 from __future__ import annotations
 
@@ -24,12 +23,6 @@ from ..device import resolve
 from . import layers as L, moe as MOE, ssm as SSM
 
 F32 = torch.float32
-
-
-def _check_rope(cfg: ModelConfig):
-    if cfg.rope_kind == "mrope":
-        raise NotImplementedError(f"{cfg.name}: M-RoPE comes with the VLM "
-                                  "slice (ROADMAP A13)")
 
 
 # --------------------------------------------------------------------------
@@ -60,7 +53,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device="cuda") -> dict:
     """Random f32 parameters. `generator` defaults to one on `device`
     seeded with 0; draws happen on the generator's device."""
-    _check_rope(cfg)
     assert cfg.num_layers % cfg.superblock == 0, \
         f"{cfg.name}: num_layers % superblock != 0"
     dev = resolve(device)
@@ -90,7 +82,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
     [n_super, B, max_seq, KH, hd] for attention, the SSM state
     blocks[j]["conv"|"ssm"] for mamba; and the per-row length `pos`
     (i32[B])."""
-    _check_rope(cfg)
     dev = resolve(device)
     n_super = cfg.num_layers // cfg.superblock
     blocks = []
@@ -172,9 +163,9 @@ def forward(params, tokens, cfg: ModelConfig, *, embeds=None,
             positions=None, cache=None, mode: str = "train",
             remat: bool = False):
     """tokens: [B, S_text] int; embeds: [B, S_front, D] modality stub
-    (prepended); positions: [B, S] (default iota, or the cache length when
-    decoding); remat recomputes each superblock's activations in the
-    backward pass. Returns (logits f32 [B, S, V], new_cache|None)."""
+    (prepended); positions: [B, S], or [B, S, 3] for M-RoPE (default iota,
+    or the cache length when decoding, on all three axes for M-RoPE);
+    remat recomputes each superblock's activations in the backward pass. Returns (logits f32 [B, S, V], new_cache|None)."""
     x = L.embed(params["embed"], tokens, cfg)
     if embeds is not None:
         x = torch.cat([embeds.to(x.dtype), x], dim=1)
@@ -185,6 +176,8 @@ def forward(params, tokens, cfg: ModelConfig, *, embeds=None,
         else:
             positions = torch.arange(S, dtype=torch.int32,
                                      device=x.device).expand(B, S)
+        if cfg.rope_kind == "mrope":
+            positions = positions[..., None].expand(*positions.shape, 3)
     x = probe_site("embed.out", x)
 
     cache_pos = cache["pos"] if (cache is not None and mode == "decode") \

@@ -46,3 +46,29 @@ def make_decode_step(cfg: ModelConfig, runtime=None, probe_mode=None):
     decode_step.last = None
     return decode_step
 
+
+def make_prefill_step(cfg: ModelConfig, runtime=None):
+    """The prefill step: `registry.prefill_fn` under the runtime's
+    collector, then the probe stage over its events (the encoder's sites
+    fire only here). Like the decode step it keeps its last event tape
+    and the map state it started from on `prefill_step.last` (rows,
+    maps_in, step 0, table_gen)."""
+    wanted = runtime.wanted_sites() if runtime else set()
+
+    def prefill_step(params, batch, cache, maps):
+        """batch: tokens (+ enc_embeds | embeds/positions); returns
+        (logits, cache, maps)."""
+        col = E.Collector(wanted) if runtime else None
+        with col if col is not None else contextlib.nullcontext():
+            logits, cache = MR.prefill_fn(params, batch, cache, cfg)
+            if col is not None:
+                rows = col.take_all_rows(batch["tokens"].device)
+        prefill_step.last = None
+        if runtime is not None and rows.shape[0] > 0:
+            aux = J.make_aux(device=rows.device)
+            prefill_step.last = (rows, maps, 0, runtime.table_generation)
+            maps, aux = runtime.probe_stage(rows, maps, aux)
+        return logits, cache, maps
+
+    prefill_step.last = None
+    return prefill_step

@@ -761,7 +761,8 @@ assert fleet <= set(names), fleet - set(names)
 aggregator = {"repro_torch.core.daemon", "repro_torch.core.treeagg",
               "repro_torch.core.fuzz"}
 assert aggregator <= set(names), aggregator - set(names)
-families = {"repro_torch.models.moe", "repro_torch.models.ssm"}
+families = {"repro_torch.models.moe", "repro_torch.models.ssm",
+            "repro_torch.models.encdec"}
 assert families <= set(names), families - set(names)
 print(len(names))
 """
@@ -770,4 +771,4 @@ print(len(names))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 73
+    assert int(out.stdout.strip()) >= 74

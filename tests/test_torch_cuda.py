@@ -698,3 +698,70 @@ def test_family_decode_step_on_the_card_equals_the_cpu(cuda, arch):
     for a, b in zip(*got):
         np.testing.assert_allclose(a.cpu().float().numpy(),
                                    b.float().numpy(), rtol=1e-4, atol=1e-4)
+
+
+# (BH, BKH, S, hd, causal) of the bf16 flash forward on the model paths of
+# the encoder-decoder and VLM families: seamless's encoder at 4 x 4096
+# frames (16 heads of 64, non-causal) and qwen2-vl's 4096-position prefill
+# (64 q / 8 kv heads of 128, causal)
+FLASH_PATH_CASES = [(64, 64, 4096, 64, False), (64, 8, 4096, 128, True)]
+
+
+@pytest.mark.parametrize("case", FLASH_PATH_CASES,
+                         ids=["encoder-noncausal-hd64", "vlm-causal-hd128"])
+def test_flash_forward_at_the_encdec_and_vlm_path_shapes(cuda, case):
+    """o within TOL_BF16_O and lse within TOL_LSE of the plain version."""
+    from repro_torch.kernels import flash_attention as TFA
+    BH, BKH, S, hd, causal = case
+    q, k, v, _ = _flash_case(cuda, BH, BKH, S, hd, "bfloat16", BH + hd)
+    o, lse = TFA.flash_fwd_cuda(q, k, v, causal)
+    wo, wlse = TREF.flash_fwd(q, k, v, causal, BH // BKH)
+    np.testing.assert_allclose(o.float().cpu().numpy(),
+                               wo.float().cpu().numpy(), *TFA.TOL_BF16_O)
+    np.testing.assert_allclose(lse.cpu().numpy(), wlse.cpu().numpy(),
+                               *TFA.TOL_LSE)
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "qwen2-vl-72b"])
+def test_encdec_and_vlm_on_the_card_equal_the_cpu(cuda, arch):
+    """A smoke-width model (f32, TF32 off) on the card and on the CPU from
+    the same weights: seamless prefills 4096 frames (the f32 flash kernel,
+    non-causal, in each encoder layer) and 6 tokens; qwen2-vl 8 patch
+    embeddings and 6 tokens with M-RoPE grid ids; then one decode step.
+    Logits and every cache leaf within 1e-4."""
+    from repro_torch.configs import registry as R
+    from repro_torch.models import layers as ML, registry as MR
+    cfg = R.smoke(arch)
+    g = torch.Generator().manual_seed(0)
+    params = MR.init_params(cfg, g, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (1, 6), generator=g)
+    if cfg.family == "encdec":
+        batch = {"enc_embeds": torch.randn(1, 4096, cfg.d_model,
+                                           generator=g), "tokens": toks}
+        enc_seq = 4096
+    else:
+        batch = {"embeds": torch.randn(1, 8, cfg.d_model, generator=g),
+                 "tokens": toks,
+                 "positions": ML.mrope_grid_positions(2, 4, 6)}
+        enc_seq = 0
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = []
+        for dev in (cuda, torch.device("cpu")):
+            ops.reset_launch_counts()
+            p = MR.params_from_numpy(
+                TE._tree_map(lambda a: a.numpy(), params), dev)
+            cache = MR.make_cache(cfg, 1, 32, torch.float32, dev,
+                                  enc_seq=enc_seq)
+            _, cache = MR.prefill_fn(
+                p, {k: v.to(dev) for k, v in batch.items()}, cache, cfg)
+            logits, cache = MR.decode_fn(p, toks[:, :1].to(dev), cache, cfg)
+            got.append(TE._tree_leaves((logits, cache)))
+            if dev.type == "cuda" and cfg.family == "encdec":
+                assert ops.launch_counts()["flash_fwd"] == cfg.enc_layers
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for a, b in zip(*got):
+        np.testing.assert_allclose(a.cpu().float().numpy(),
+                                   b.float().numpy(), rtol=1e-4, atol=1e-4)
