@@ -173,7 +173,35 @@ Phases:
      multimodal request with grid ids) at smoke width, f32, TF32 off, on
      the card and on the CPU from the same weights: tokens equal, maps bit
      for bit but the ring buffers' stat lanes (within 1 of 2^16),
-     prefill logits within 1e-4 relative.
+     prefill logits within 1e-4 relative;
+ 13. the MoE, SSM, encoder-decoder and VLM families trained at the
+     reference's presets (launch/presets.py), seq 4096, 3 steps,
+     TRAIN_PROBES on the fused lane (seamless's layer counters on
+     uretprobe:enc.block and :dec.block, the family's layer exits), each
+     model freed before the next: (e) first, the bf16 flash forward and
+     then the backward from it at each training path's shape against
+     ref.flash_fwd and ref.flash_bwd, bit for bit on a rerun, timed beside
+     the plain versions, SDPA's and the bounds; (a) mamba2-780m
+     whole through run_training (AdamW, f32, batch 4); (b) seamless-m4t-
+     medium whole through run_training (AdamW, f32, batch 2: 4096 frames
+     and 4096 tokens a row); (c) qwen2-vl-72b at full width cut to 1 layer
+     (Adafactor, bf16 parameters, batch 2 in microbatches of 1, 1024 patch
+     embeddings and 3072 tokens a row, step 2 with M-RoPE grid ids) and
+     (d) llama4-scout at full width cut to 1 layer (Adafactor, bf16,
+     batch 1), both through the functions run_training calls. Each fails
+     unless every step ran unvetoed with finite loss and gradient norm,
+     tensor_stats launched once per event, the events a step are the
+     layers' a microbatch plus a loss a microbatch plus the gradient norm,
+     the hash and ring-buffer kernels launched, the layer counters, loss
+     ring and gradient-norm histogram count every event, the flash kernels
+     launched twice and once a layer a microbatch, and the last tape
+     replays bit for bit; prints tokens/s cold and warm, peak memory, and
+     one profiled warm step (device busy, time by group, casts, the SSD or
+     the MoE functions). (f) one step of llama4-scout, mamba2, seamless (at
+     4096) and qwen2-vl (grid ids) at smoke width, f32, TF32 off, at each
+     preset's optimizer, card against CPU as phase 8; llama4-scout's top-1
+     router, whose gradient is zero in exact arithmetic, held to a
+     gradient below 1e-8 and a move within Adafactor's bound.
 
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}. Any failure exits
@@ -849,9 +877,8 @@ def check_flash(torch, FA, ref):
     """Flash attention forward and backward against the plain versions:
     f32 at test_flash_kernel.py's shapes, and bf16 at the training path's
     shape (B 2, S 4096, 14 q heads over 2 kv heads, hd 64, causal), where
-    both are timed beside scaled_dot_product_attention. Returns
-    (max abs err at the path's shape, fwd row, bwd row)."""
-    import torch.nn.functional as F
+    both are timed beside scaled_dot_product_attention (`flash_bwd_at`).
+    Returns (max abs err at the path's shape, fwd row, bwd row)."""
     tf, tb = FA.TOL_F32
     for B, S, H, KH, hd in ((1, 128, 2, 2, 32), (2, 256, 4, 2, 16),
                             (1, 128, 8, 2, 64)):
@@ -871,69 +898,11 @@ def check_flash(torch, FA, ref):
           f"within {tf}, gradients within {tb}", flush=True)
 
     B, S, H, KH, hd = 2, 4096, 14, 2, 64
-    BH, BKH = B * H, B * KH
-    fwd_row, (q, k, v, do, o, lse) = flash_fwd_at(
-        torch, FA, ref, BH, BKH, S, hd, True, "phase 2 path shape", seed=7)
-    err = fwd_row["max_abs_err"]
-    got = FA.flash_bwd_cuda(q, k, v, o, lse, do, True)
-    again = FA.flash_bwd_cuda(q, k, v, o, lse, do, True)
-    want = ref.flash_bwd(q, k, v, o, lse, do, True, H // KH)
-    torch.cuda.synchronize()
-    gerr, rtol, atol = 0.0, *FA.TOL_BF16_GRAD
-    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
-        if not torch.equal(g, a):
-            fail(f"flash_bwd {name}: two runs are not bit-identical")
-        scale = max(1.0, float(w.float().abs().max()))
-        gerr = max(gerr, _close(torch, g, w, rtol, atol * scale,
-                                f"flash_bwd {name} bf16 path shape",
-                                FA.TOL_BF16_NORM))
-    # the yardstick: SDPA's forward and backward on the same inputs ([B, H,
-    # S, hd])
-    q4, k4, v4, do4 = (t.view(B, -1, S, hd) for t in (q, k, v, do))
-    qg, kg, vg = (t.detach().clone().requires_grad_(True)
-                  for t in (q4, k4, v4))
-
-    def sdpa_fwd_bwd():
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                             enable_gqa=True)
-        torch.autograd.grad(out, (qg, kg, vg), do4)
-
-    # SDPA's backward alone, on the graph of one forward: the same work as
-    # flash_bwd
-    sd_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                            enable_gqa=True)
-
-    bwd_ms = cuda_ms(torch, lambda: FA.flash_bwd_cuda(q, k, v, o, lse, do,
-                                                      True), 5)
-    bwd_plain = cuda_ms(torch, lambda: ref.flash_bwd(q, k, v, o, lse, do,
-                                                     True, H // KH),
-                        3, warmup=1)
-    fb_lib = cuda_ms(torch, sdpa_fwd_bwd, 10)
-    bwd_lib = cuda_ms(torch, lambda: torch.autograd.grad(
-        sd_out, (qg, kg, vg), do4, retain_graph=True), 10)
-    del sd_out
-    pairs = S * (S + 1) // 2                       # causal (q, k) pairs
-    io = 2 * (2 * BH + 2 * BKH) * S * hd           # q, o and k, v in bf16
-    # backward: reads q, k, v, o, do and lse, writes dq, dk, dv; the least
-    # work is five products (q k^T recomputed, do v^T, p^T do, ds^T q, ds k)
-    bb, bby = bound_ms(io + 2 * BH * S * hd + 4 * BH * S
-                       + 2 * (BH + 2 * BKH) * S * hd,
-                       10.0 * hd * pairs * BH, BF16_OPS_PER_S)
-    bwd_row = {"shape": [B, S, H, KH, hd], "dtype": "bfloat16",
-               "ms": bwd_ms, "plain_ms": bwd_plain, "bound_ms": bb,
-               "bound_by": bby, "library_ms": bwd_lib,
-               "library_is": "sdpa backward",
-               "sdpa_fwd_bwd_ms": fb_lib,
-               "tflops": 14.0 * hd * pairs * BH / bwd_ms / 1e9,
-               "share_of_bound": bb / bwd_ms,
-               "max_abs_err": gerr}
-    print(f"  flash_bwd {B, S, H, KH, hd} bf16: kernel {bwd_ms:.3f} ms "
-          f"({bwd_row['tflops']:.1f} TFLOP/s of the 7 products, "
-          f"{100 * bb / bwd_ms:.1f} % of the bound), plain {bwd_plain:.3f} "
-          f"ms, sdpa backward {bwd_lib:.3f} ms (fwd+bwd {fb_lib:.3f} ms), "
-          f"bound {bb:.4f} ms ({bby}); max abs err {gerr:.2e}; two runs "
-          "bit-identical", flush=True)
-    return max(err, gerr), fwd_row, bwd_row
+    bwd_row, fwd_row = flash_bwd_at(torch, FA, ref, B * H, B * KH, S, hd,
+                                    True, "phase 2 path shape", fwd=True,
+                                    seed=7)
+    return (max(fwd_row["max_abs_err"], bwd_row["max_abs_err"]), fwd_row,
+            bwd_row)
 
 
 # --------------------------------------------------------------------------
@@ -1110,7 +1079,66 @@ def collector_ops(prof) -> dict:
     return {"events": len(emits), "stats_kernels": stats,
             "other_device_ops": len(other),
             "device_ops_per_event": (stats + len(other)) / n,
-            "other_by_name": names}
+            "other_by_name": names, "by_launch": launched_in_ranges(prof)}
+
+
+def _activity(e) -> str:
+    """A profiler event's kind, by device type and name: "device" for a
+    kernel, copy or fill on the card, "launch" for a CUDA runtime or
+    driver call (cudaLaunchKernel, cuLaunchKernel, ...), "range" for an
+    emit range on the host, else "other" (the ranges' annotations on the
+    card's timeline among them)."""
+    name = e.name()
+    if "cuda" in str(e.device_type()).lower():
+        return "other" if name == EMIT_RANGE or name.startswith(RANGE) \
+            else "device"
+    if name == EMIT_RANGE:
+        return "range"
+    return "launch" if re.match(r"cu(da)?[A-Z]", name) else "other"
+
+
+def launched_in_ranges(prof) -> dict:
+    """The window's device operations (kernels, copies, fills) placed by
+    the call that launched them, independently of the operator tree that
+    collector_ops walks: each is matched by its correlation id to its CUDA
+    runtime or driver call, and counted as the collector's when that call
+    started inside an emit range on the host's clock. Returns the
+    tensor_stats kernels and the other device operations launched inside
+    a range (those by name), the device operations with no launch call
+    in the profile, and whether every device operation has an id of its
+    own; with "error" if the profile could not be read."""
+    import bisect
+    try:
+        kev = [(e, _activity(e)) for e in
+               prof.profiler.kineto_results.events()]
+        spans = sorted((e.start_ns(), e.end_ns()) for e, k in kev
+                       if k == "range")
+        # a device operation's id is never 0; an event with id 0 (an
+        # annotation on the card's timeline) is none
+        calls = {e.correlation_id(): e.start_ns() for e, k in kev
+                 if k == "launch" and e.correlation_id()}
+        ids = [(e.name(), e.correlation_id()) for e, k in kev
+               if k == "device" and e.correlation_id()]
+    except Exception as exc:              # reported, never the check's pass
+        return {"error": repr(exc)}
+    starts = [a for a, _ in spans]
+    stats, other, unmatched = 0, {}, 0
+    for name, cid in ids:
+        t = calls.get(cid)
+        if t is None:
+            unmatched += 1
+            continue
+        i = bisect.bisect_right(starts, t) - 1
+        if i < 0 or t > spans[i][1]:
+            continue
+        if "stats_" in name:
+            stats += 1
+        else:
+            other[name[:60]] = other.get(name[:60], 0) + 1
+    return {"ranges": len(spans), "stats_kernels": stats,
+            "other_device_ops": sum(other.values()),
+            "other_by_name": other, "unmatched": unmatched,
+            "ids_distinct": len({cid for _, cid in ids}) == len(ids)}
 
 
 def _profile_once(torch, fn):
@@ -1141,11 +1169,10 @@ def profiled(torch, fn, groups, detail, ranges=None):
     `detail`, the collector's device operations, and -- with `ranges`,
     functions for `ranged_fns` -- their `range_times` and the casts' device
     ms). Prints the ten kernels with the most device time. fn must be
-    repeatable: a window whose
-    profile lacks some of the tensor_stats kernels the counter saw
-    launched, and holds nothing else that is off, lost activity records,
-    and is profiled once more; the check below holds that second window
-    as it holds the first."""
+    repeatable: a window whose profile lacks some of the tensor_stats
+    kernels the counter saw launched, and holds nothing else that is off,
+    lost activity records, and is profiled once more; the check below
+    holds that second window as it holds the first."""
     if ranges:
         plain = fn
 
@@ -1197,7 +1224,23 @@ def profiled(torch, fn, groups, detail, ranges=None):
           f"{ops['other_device_ops']} other device operations = "
           f"{ops['device_ops_per_event']:.2f} device operations per event; "
           f"others by name {json.dumps(ops['other_by_name'])}", flush=True)
-    if not ops["events"] or ops["other_device_ops"] or \
+    # placed by launch call, once that placement finds every tensor_stats
+    # kernel the counter saw in an emit range; else linked by the operator
+    # tree. The tree can link launches made outside every range to an
+    # event (9 in a mamba2 step's window, a GEMM among them; why is not
+    # known): those are counted in "mislinked" and fail nothing
+    at = ops["by_launch"]
+    placed = at.get("stats_kernels") == launched == ops["events"] and \
+        at.get("ranges") == ops["events"] and at.get("ids_distinct")
+    ops["counted_by"] = "launch call" if placed else "operator tree"
+    other = at["other_device_ops"] if placed else ops["other_device_ops"]
+    ops["mislinked"] = ops["other_device_ops"] - other if placed else None
+    print(f"  collector by launch call: {json.dumps(at)}; counted by "
+          f"{ops['counted_by']}: {other} other device operations"
+          + (f", {ops['mislinked']} linked by the operator tree but "
+             "launched outside every emit range" if ops["mislinked"]
+             else ""), flush=True)
+    if not ops["events"] or other or \
             ops["stats_kernels"] != ops["events"] or launched != ops["events"]:
         fail("the collector must make exactly one tensor_stats launch and "
              f"no other device operation per event: {ops}, {launched} "
@@ -1634,17 +1677,50 @@ def serving_interp(torch, rt, maps, rows, aux):
 # phases 7-8: training
 # --------------------------------------------------------------------------
 
-def _train_runtime(probes=True):
-    from repro_torch.core.runtime import BpftimeRuntime
+def block_targets(cfg=None) -> list[str]:
+    """Where TRAIN_PROBES' layer counters attach: uprobe:block, which every
+    decoder layer fires (launch/train.attach_train_probes); the
+    encoder-decoder family fires no such site, so for it its layers'
+    exits, uretprobe:enc.block and uretprobe:dec.block."""
+    if cfg is not None and cfg.family == "encdec":
+        return ["uretprobe:enc.block", "uretprobe:dec.block"]
+    return ["uprobe:block"]
+
+
+def attach_train_probes(rt, cfg=None):
+    """launch/train.TRAIN_PROBES into `rt` on the fused lane, as
+    launch/train.attach_train_probes loads them, with the layer counters
+    at block_targets(cfg)."""
+    from repro_torch.core.maps import MapKind, MapSpec
     from repro_torch.launch import train as T
+    for name, text, spec, ptype, target in T.TRAIN_PROBES:
+        maps = [] if spec is None else [
+            MapSpec(spec[0], MapKind(spec[1]), spec[2], rec_width=spec[3])]
+        pid = rt.load_asm(name, text, maps, ptype)
+        for tgt in block_targets(cfg) if target == "uprobe:block" \
+                else [target]:
+            rt.attach(pid, tgt, mode="fused")
+
+
+def _train_runtime(probes=True, cfg=None, tape=None):
+    """A runtime with launch/train.TRAIN_PROBES (the layer counters where
+    `cfg`'s family fires them) whose probe stage counts the rows
+    of every call and whose poll_control stamps the top of every step. With
+    a dict `tape`, tape["last"] is the last stage's (rows, a copy of the
+    maps it started from, the step), for `replay_tape`."""
+    from repro_torch.core.runtime import BpftimeRuntime
     rt = BpftimeRuntime()
     if probes:
-        T.attach_train_probes(rt)
+        attach_train_probes(rt, cfg)
     events = []
     stage = rt.probe_stage
 
     def counting_stage(rows, maps, aux, mode=None):
         events.append(int(rows.shape[0]))
+        if tape is not None:
+            tape["last"] = (rows, {n: {f: a.clone() for f, a in st.items()}
+                                   for n, st in maps.items()},
+                            aux["time_ns"].clone())
         return stage(rows, maps, aux, mode=mode)
     rt.probe_stage = counting_stage
     begins = []
@@ -1779,71 +1855,18 @@ def train_unprobed(torch, cfg, steps=2, seq=4096, batch=4, microbatch=2):
 
 
 def train_compare(torch, small, seq=4096, batch=2):
-    """Phase 7: one training step of the smoke-width model on the card and
-    on the CPU, from the same weights, batch and probes."""
+    """Phase 8: one training step of the smoke-width model on the card and
+    on the CPU, from the same weights, batch and probes
+    (`step_card_vs_cpu`)."""
     from repro_torch.configs.base import ShapeConfig, TrainConfig
-    from repro_torch.core.runtime import to_numpy
     from repro_torch.data.pipeline import SyntheticDataset
-    from repro_torch.models import registry as MR
-    from repro_torch.optim import tree_leaves, tree_map
-    from repro_torch.train.train_step import (init_train_state,
-                                              make_train_step)
     tcfg = TrainConfig(warmup=0, total_steps=10)
-    gen = torch.Generator()
-    gen.manual_seed(SEED)
-    params = MR.init_params(small, gen, "cpu")
     batch_np = SyntheticDataset(small, ShapeConfig("cmp", seq, batch,
                                                    "train"), tcfg,
                                 seed=SEED).next()
-    out = {}
-    for dev in ("cuda", "cpu"):
-        # the gradients the step takes, before clipping and the update
-        pg = tree_map(lambda t: t.detach().to(dev).requires_grad_(True),
-                      params)
-        b = {k: torch.as_tensor(v).to(torch.int64).to(dev)
-             for k, v in batch_np.items()}
-        loss, _ = MR.loss_fn(pg, b, small, remat=tcfg.remat)
-        grads = [g.cpu() for g in torch.autograd.grad(loss,
-                                                      tree_leaves(pg))]
-        del pg, loss
-        rt, _, _ = _train_runtime()
-        p = tree_map(lambda t: t.to(dev), params)
-        state = init_train_state(small, tcfg, rt, device=dev, params=p)
-        state, m = make_train_step(small, tcfg, rt, probe_mode="fused")(
-            state, batch_np)
-        out[dev] = (state, m, to_numpy(state["maps"]), grads)
-    (sg, mg, mapg, gg), (sc, mc, mapc, gc) = out["cuda"], out["cpu"]
-    # each leaf relative to its own norm, floored at 1e-3 of the whole
-    # gradient's: a leaf whose gradient is zero in exact arithmetic (the
-    # k bias, by the softmax's shift invariance) holds only rounding noise
-    floor = 1e-3 * float(torch.sqrt(sum(w.square().sum() for w in gc)))
-    d_g = max(float((g - w).norm()) / max(float(w.norm()), floor)
-              for g, w in zip(gg, gc))
-    d_loss = abs(float(mg["loss"]) - float(mc["loss"]))
-    d_gn = abs(float(mg["grad_norm"]) - float(mc["grad_norm"]))
-    d_p = max(float((a.cpu() - b).abs().max()) for a, b in
-              zip(tree_leaves(sg["params"]), tree_leaves(sc["params"])))
-    if not (d_loss <= TRAIN_CMP_TOL * abs(float(mc["loss"]))
-            and d_gn <= TRAIN_CMP_TOL * float(mc["grad_norm"])
-            and d_g <= TRAIN_CMP_TOL and d_p <= TRAIN_PARAM_TOL):
-        fail(f"smoke training step card vs CPU: loss {d_loss:.2e}, grad "
-             f"norm {d_gn:.2e}, worst gradient leaf {d_g:.2e} (relative, "
-             f"limit {TRAIN_CMP_TOL}), params {d_p:.2e} (limit "
-             f"{TRAIN_PARAM_TOL})")
-    for name in ("tr_layer_counts", "tr_key_hash", "tr_gnorm_hist"):
-        for f in mapc[name]:
-            if not (mapg[name][f] == mapc[name][f]).all():
-                fail(f"smoke training step: map {name}.{f} differs between "
-                     "card and CPU")
-    print(f"  smoke qwen2-0.5b (f32) seq {seq} batch {batch}, one step: "
-          f"loss {float(mc['loss']):.6f}; card vs CPU abs diff loss "
-          f"{d_loss:.2e}, grad norm {d_gn:.2e} (relative limit "
-          f"{TRAIN_CMP_TOL}), worst gradient leaf {d_g:.2e} relative "
-          f"(limit {TRAIN_CMP_TOL}), params max {d_p:.2e} (limit "
-          f"{TRAIN_PARAM_TOL}); counter, hash and histogram maps equal",
-          flush=True)
-    return {"loss_diff": d_loss, "grad_norm_diff": d_gn,
-            "grad_leaf_rel_diff": d_g, "param_diff": d_p}
+    return step_card_vs_cpu(torch, small, tcfg, batch_np,
+                            f"smoke {small.name} (f32) seq {seq} batch "
+                            f"{batch}")
 
 
 # --------------------------------------------------------------------------
@@ -3608,6 +3631,511 @@ def new_families_card_vs_cpu(torch, ops, registry, device="cuda"):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 13: the MoE, SSM, encoder-decoder and VLM families trained
+# --------------------------------------------------------------------------
+
+# train_4k's sequence (src/repro/configs/base.py:133) and phase 7's steps;
+# the global batches are cut to what one card holds (train_4k has 256)
+TRAIN_SEQ, TRAIN_STEPS = 4096, 3
+MAMBA2_BATCH, SEAMLESS_BATCH = 4, 2
+# qwen2-vl: 2 rows in microbatches of 1 (the f32 accumulation runs), each a
+# 32 x 32 patch grid and 3072 tokens; the rows of step GRID_STEP carry
+# their M-RoPE grid ids. llama4-scout: 1 row, no accumulation
+QWEN2_VL_BATCH, QWEN2_VL_MICRO, LLAMA4_BATCH = 2, 1, 1
+GRID_STEP = 1
+# qwen2-vl-72b and llama4-scout at full width cut to 1 layer (3.37 B and
+# 4.27 B parameters: embedding and head alone are 2.5 B and 2.07 B)
+TRAIN_CUT_LAYERS = 1
+# a gradient at most this large is rounding noise of a zero (phase 13 (f))
+NOISE_GRAD = 1e-8
+# the flash backward at the training paths' shapes (BH, BKH, S, hd,
+# causal, what): seamless's encoder and decoder at batch 2 (16 heads of
+# 64), qwen2-vl's and llama4-scout's rows (64/8 and 40/8 heads of 128)
+FLASH_BWD_PATHS = [(32, 32, 4096, 64, False, "seamless encoder"),
+                   (32, 32, 4096, 64, True, "seamless decoder"),
+                   (64, 8, 4096, 128, True, "qwen2-vl"),
+                   (40, 8, 4096, 128, True, "llama4-scout")]
+
+
+def layer_events(cfg) -> int:
+    """Layer-counter events of one microbatch: one a layer; an encoder and
+    a decoder layer each in the encoder-decoder family."""
+    if cfg.family == "encdec":
+        return cfg.enc_layers + cfg.dec_layers
+    return cfg.num_layers
+
+
+def attention_layers(cfg) -> int:
+    """Layers whose self-attention takes the flash kernels at 4096."""
+    if cfg.family == "encdec":
+        return cfg.enc_layers + cfg.dec_layers
+    return layers_of(cfg, lambda j: cfg.block_kind(j) == "attn")
+
+
+def flash_bwd_at(torch, FA, ref, BH, BKH, S, hd, causal, what, fwd=False,
+                 seed=None):
+    """The bf16 backward kernels (delta, dkv, dq) at a training path's shape
+    against ref.flash_bwd within TOL_BF16_GRAD / TOL_BF16_NORM, bit for bit
+    on a rerun, and timed (CUDA events) beside the plain version and SDPA's
+    backward alone on the same inputs. With fwd, the forward is first held
+    and timed by flash_fwd_at. Bound: 2.5x the forward's operations (the
+    least work is five products: q k^T recomputed, do v^T, p^T do, ds^T q,
+    ds k) at the bf16 rate, against q, k, v, o, do, lse read and dq, dk, dv
+    written once. Returns (backward row, forward row or None)."""
+    import torch.nn.functional as F
+    rep = BH // BKH
+    fwd_row = None
+    if fwd:
+        fwd_row, (q, k, v, do, o, lse) = flash_fwd_at(
+            torch, FA, ref, BH, BKH, S, hd, causal, what, seed)
+    else:
+        q, k, v, do = _flash_inputs(torch, BH, BKH, S, hd, torch.bfloat16,
+                                    BH + S + hd if seed is None else seed)
+        o, lse = FA.flash_fwd_cuda(q, k, v, causal)
+    got = FA.flash_bwd_cuda(q, k, v, o, lse, do, causal)
+    again = FA.flash_bwd_cuda(q, k, v, o, lse, do, causal)
+    want = ref.flash_bwd(q, k, v, o, lse, do, causal, rep)
+    torch.cuda.synchronize()
+    gerr, rtol, atol = 0.0, *FA.TOL_BF16_GRAD
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        if not torch.equal(g, a):
+            fail(f"{what}: flash_bwd {name}: two runs are not bit-identical")
+        scale = max(1.0, float(w.float().abs().max()))
+        gerr = max(gerr, _close(torch, g, w, rtol, atol * scale,
+                                f"{what}: flash_bwd {name} bf16",
+                                FA.TOL_BF16_NORM))
+    del got, again, want
+    q4, k4, v4, do4 = (t.view(1, -1, S, hd) for t in (q, k, v, do))
+    qg, kg, vg = (t.detach().clone().requires_grad_(True)
+                  for t in (q4, k4, v4))
+    sd_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                            enable_gqa=rep > 1)
+    ms = cuda_ms(torch, lambda: FA.flash_bwd_cuda(q, k, v, o, lse, do,
+                                                  causal), 5)
+    plain = cuda_ms(torch, lambda: ref.flash_bwd(q, k, v, o, lse, do,
+                                                 causal, rep), 2, warmup=1)
+    lib = cuda_ms(torch, lambda: torch.autograd.grad(
+        sd_out, (qg, kg, vg), do4, retain_graph=True), 10)
+    del sd_out
+    pairs = S * (S + 1) // 2 if causal else S * S
+    io = 2 * (2 * BH + 2 * BKH) * S * hd
+    ops_ = 10.0 * hd * pairs * BH
+    b, by = bound_ms(io + 2 * BH * S * hd + 4 * BH * S
+                     + 2 * (BH + 2 * BKH) * S * hd, ops_, BF16_OPS_PER_S)
+    row = {"shape": [BH, BKH, S, hd], "causal": causal, "what": what,
+           "dtype": "bfloat16", "ms": ms, "plain_ms": plain, "bound_ms": b,
+           "bound_by": by, "library_ms": lib,
+           "library_is": "sdpa backward", "gflop": ops_ / 1e9,
+           "times_bound": ms / b, "max_abs_err": gerr}
+    print(f"  {what}: flash_bwd (BH {BH}, BKH {BKH}, S {S}, hd {hd}, "
+          f"{'causal' if causal else 'non-causal'}) bf16: kernel {ms:.3f} "
+          f"ms ({ms / b:.2f}x the bound), plain {plain:.2f} ms, sdpa "
+          f"backward {lib:.3f} ms, bound {b:.4f} ms ({by}, "
+          f"{row['gflop']:.0f} GFLOP); max abs err {gerr:.2e}; two runs "
+          "bit-identical", flush=True)
+    return row, fwd_row
+
+
+def flash_bwd_paths(torch, FA, ref):
+    """(e): flash_bwd_at at every FLASH_BWD_PATHS shape, each from the
+    forward that flash_fwd_at has just held against ref.flash_fwd there
+    (the training step launches both kernels at these shapes)."""
+    rows, fwd_rows = [], []
+    for BH, BKH, S, hd, causal, what in FLASH_BWD_PATHS:
+        row, fwd = flash_bwd_at(torch, FA, ref, BH, BKH, S, hd, causal,
+                                f"phase 13 (e) {what}", fwd=True)
+        rows.append(row)
+        fwd_rows.append(fwd)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows, fwd_rows
+
+
+def check_train_run(cfg, what, run, steps=TRAIN_STEPS):
+    """Phase 13's checks of one training run (`run` from `train_run`): every
+    step ran, none vetoed, losses and gradient norms finite; tensor_stats
+    once per collected event; events per step the layers' events, a loss a
+    microbatch and the gradient norm; the hash and ring-buffer kernels
+    launched; the layer counters one a layer a microbatch (an encoder and a
+    decoder layer share an index); the loss ring and the gradient-norm
+    histogram every event; the flash kernels twice (forward and remat
+    recompute) and once (backward) a layer a microbatch; the last step's
+    tape replayed through every mode to the fused lane's maps."""
+    from repro_torch.core.runtime import to_numpy
+    hist, events, launches, n_mb = (run["hist"], run["events"],
+                                    run["launches"], run["microbatches"])
+    if len(hist) != steps or any(h["vetoed"] != 0 for h in hist):
+        fail(f"{what}: {len(hist)} steps, vetoed "
+             f"{[h['vetoed'] for h in hist]}")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in hist):
+        fail(f"{what}: a loss or gradient norm is not finite")
+    if launches["tensor_stats"] != sum(events):
+        fail(f"{what}: tensor_stats launches {launches['tensor_stats']} != "
+             f"events collected {sum(events)}")
+    per_step = layer_events(cfg) * n_mb + n_mb + 1
+    if events != [per_step] * steps:
+        fail(f"{what}: events per step {events}, expected {per_step}")
+    if launches["hash_fetch_add_batch"] == 0 or \
+            launches["ringbuf_emit_batch"] == 0:
+        fail(f"{what}: the hash or ring-buffer kernel was not launched: "
+             f"{launches}")
+    maps = to_numpy(run["state"]["maps"])
+    n_idx = cfg.enc_layers if cfg.family == "encdec" else cfg.num_layers
+    per_idx = (2 if cfg.family == "encdec" else 1) * n_mb * steps
+    counts = maps["tr_layer_counts"]["values"]
+    if counts[:n_idx].tolist() != [per_idx] * n_idx or counts[n_idx:].any():
+        fail(f"{what}: the ARRAY layer counters {counts[:n_idx + 2]} do "
+             f"not count {per_idx} a layer index")
+    if int(maps["tr_loss_rb"]["head"][0]) != n_mb * steps or \
+            int(maps["tr_gnorm_hist"]["bins"].sum()) != steps:
+        fail(f"{what}: the loss record or the gradient-norm histogram "
+             "missed an event")
+    attn = attention_layers(cfg)
+    want = (2 * attn * n_mb * steps, attn * n_mb * steps)
+    if (launches["flash_fwd"], launches["flash_bwd"]) != want:
+        fail(f"{what}: flash launches {launches['flash_fwd']}/"
+             f"{launches['flash_bwd']} != {want[0]}/{want[1]}")
+    replay_tape(run["rt"], run["tape"]["last"], run["state"]["maps"], what)
+
+
+def report_train(what, run, batch, seq=TRAIN_SEQ):
+    """Print a run's steps, tokens/s cold (step 1) and warm, peak memory
+    and kernel launches; returns the summary."""
+    hist, step_s = run["hist"], run["step_s"]
+    tokens = batch * seq
+    for i, h in enumerate(hist):
+        print(f"  {what} step {i + 1}: loss {h['loss']:.5f}, grad norm "
+              f"{h['grad_norm']:.5f}, lr {h['lr']:.3e}, {step_s[i]:.3f} s "
+              f"= {tokens / step_s[i]:.0f} tokens/s", flush=True)
+    warm = sum(step_s[1:]) / max(len(step_s) - 1, 1)
+    out = {"steps": [{k: h[k] for k in ("loss", "grad_norm", "lr",
+                                        "vetoed")} | {"s": s}
+                     for h, s in zip(hist, step_s)],
+           "tokens_per_step": tokens, "tokens_per_s_cold": tokens / step_s[0],
+           "tokens_per_s_warm": tokens / warm,
+           "peak_gb_step1": run["peak_step1"] / 1e9,
+           "peak_gb": run["peak"] / 1e9, "events": run["events"],
+           "microbatches": run["microbatches"], "launches": run["launches"]}
+    print(f"  {what}: tokens/s cold {out['tokens_per_s_cold']:.0f}, warm "
+          f"{out['tokens_per_s_warm']:.0f}; peak memory allocated "
+          f"{out['peak_gb_step1']:.2f} GB after step 1, {out['peak_gb']:.2f} "
+          f"GB in the run; events {run['events']}; kernels "
+          f"{json.dumps(run['launches'])}", flush=True)
+    return out
+
+
+def train_run(torch, ops, cfg, tcfg, batch, grid=None, steps=TRAIN_STEPS,
+              seq=TRAIN_SEQ, through_run_training=False):
+    """One training run of `cfg` on the card with the family's train probes
+    on the fused lane, the counts set to 0 just before and read just after.
+    through_run_training: launch/train.run_training(cfg.name, smoke=False)
+    itself (its TrainConfig is `tcfg`'s preset: AdamW, f32, no
+    accumulation). Otherwise the functions it calls, on a config it cannot
+    build (a cut depth): the preset's `tcfg`, init_train_state,
+    make_train_step and SyntheticDataset, in run_training's loop; with
+    grid=(rows, cols) the rows of step GRID_STEP carry their M-RoPE grid
+    ids. Returns the run: hist, step seconds, events, launches, peak memory
+    after step 1 and in all, the runtime, its last tape, the state, the
+    microbatches a step, and (not through run_training) the step and its
+    last batch."""
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.launch import train as T
+    from repro_torch.models import layers as ML
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+    tape = {}
+    rt, events, begins = _train_runtime(cfg=cfg, tape=tape)
+    ends, peak1 = [], []
+
+    def on_step(s, st, m):
+        ends.append(time.perf_counter())
+        if not peak1:
+            peak1.append(torch.cuda.max_memory_allocated())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = {}
+    if through_run_training:
+        if tcfg != TrainConfig(microbatch=tcfg.microbatch, remat=True,
+                               warmup=10, total_steps=steps):
+            fail(f"{cfg.name}: the preset {tcfg} is not what run_training "
+                 "builds")
+        state, hist = T.run_training(
+            cfg.name, steps=steps, smoke=False, runtime=rt,
+            probe_mode="fused", seq_len=seq, batch=batch,
+            microbatch=tcfg.microbatch, log_every=0, on_step=on_step,
+            device="cuda")
+    else:
+        data = SyntheticDataset(cfg, ShapeConfig("train_4k_cut", seq, batch,
+                                                 "train"), tcfg, runtime=rt)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        state = init_train_state(cfg, tcfg, rt, gen, "cuda")
+        step = make_train_step(cfg, tcfg, rt, probe_mode="fused")
+        hist = []
+        for s in range(steps):
+            rt.poll_control()
+            state["maps"] = rt.sync_live_table(state["maps"])
+            rt.syscalls.invoke("sys_step_begin", [s], impl=lambda: None)
+            b = data.next()
+            if grid is not None and s == GRID_STEP:
+                lead = b["tokens"].shape[:-1]
+                pos = ML.mrope_grid_positions(*grid, b["tokens"].shape[-1],
+                                              math.prod(lead))
+                b["positions"] = pos.reshape(tuple(lead) + pos.shape[1:])
+            state, m = step(state, b)
+            hist.append({k: float(v) for k, v in m.items()})
+            rt.syscalls.invoke("sys_step_end", [s + 1, 0],
+                               impl=lambda: None)
+            on_step(s + 1, state, m)
+        out.update(step=step, batch=b)
+    torch.cuda.synchronize()
+    out.update(hist=hist, step_s=[e - b for b, e in zip(begins, ends)],
+               events=list(events), launches=ops.launch_counts(),
+               peak_step1=peak1[0], peak=torch.cuda.max_memory_allocated(),
+               rt=rt, tape=tape, state=state,
+               microbatches=batch // tcfg.microbatch if tcfg.microbatch
+               else 1)
+    return out
+
+
+def profile_train_step(torch, cfg, tcfg, run, batch, ranges, what,
+                       seq=TRAIN_SEQ):
+    """One more warm step of a run under torch.profiler (never a process's
+    first session here): device busy share, device ms by group (flash
+    kernels, matmul, probe kernels, other), casts, and the device ms of
+    `ranges` (forward and remat recompute: the backward runs outside
+    them)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.train.train_step import make_train_step
+    step = run.get("step") or make_train_step(cfg, tcfg, run["rt"],
+                                              probe_mode="fused")
+    b = run.get("batch") or SyntheticDataset(
+        cfg, ShapeConfig("prof", seq, batch, "train"), tcfg,
+        seed=SEED).next()
+    groups = {"flash kernels": ("flash_",) + tuple(f"sm90::{k}"
+                                                   for k in FLASH_SM90),
+              **PROBE_GROUPS}
+    torch.cuda.synchronize()
+    pwall, by_group, flash, col, spans = profiled(
+        torch, lambda: step(run["state"], b), groups, "flash kernels",
+        ranges)
+    busy = sum(by_group.values())
+    out = {"profiled_wall_ms": pwall * 1e3, "device_busy_ms": busy / 1e3,
+           "device_busy_share": busy / 1e6 / pwall,
+           "device_ms_by_group": {g: v / 1e3 for g, v in by_group.items()},
+           "flash_kernels_device": flash, "collector_ops": col, **spans}
+    print(f"  {what}: one profiled warm step: wall {pwall * 1e3:.1f} ms, "
+          f"device busy {100 * out['device_busy_share']:.1f} %, casts "
+          f"{spans['casts_device_ms']:.1f} ms of device", flush=True)
+    return out
+
+
+def family_train(torch, ops, registry, arch, what, batch, ranges, micro=0,
+                 cut=None, grid=None):
+    """(a)-(d): `arch` at full width (cut to `cut` layers) trained at its
+    preset, checked, reported and profiled; the model is freed after."""
+    import dataclasses
+    from repro_torch.launch import presets
+    from repro_torch.optim import tree_leaves
+    full = registry.get(arch)
+    cfg = full if cut is None else dataclasses.replace(full, num_layers=cut)
+    tcfg = presets.train_config(arch, microbatch=micro, warmup=10,
+                                total_steps=TRAIN_STEPS)
+    t0 = time.perf_counter()
+    run = train_run(torch, ops, cfg, tcfg, batch, grid=grid,
+                    through_run_training=cut is None)
+    n = sum(p.numel() for p in tree_leaves(run["state"]["params"]))
+    print(f"  {what} {arch}"
+          + ("" if cut is None else f", {cut} of its {full.num_layers} "
+             "layers") + f": {n / 1e9:.3f} B parameters in "
+          f"{tcfg.param_dtype}, {tcfg.optimizer}, global batch {batch} in "
+          f"{run['microbatches']} microbatch(es), seq {TRAIN_SEQ}; "
+          f"{time.perf_counter() - t0:.1f} s with the parameters' init",
+          flush=True)
+    check_train_run(cfg, what, run)
+    out = report_train(what, run, batch)
+    out.update(params_b=n / 1e9, optimizer=tcfg.optimizer,
+               param_dtype=tcfg.param_dtype, layers=layer_events(cfg))
+    out["profiled_step"] = profile_train_step(torch, cfg, tcfg, run, batch,
+                                              ranges, what)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def step_card_vs_cpu(torch, small, tcfg, batch_np, what, noise=()):
+    """One training step of `small` on the card and on the CPU from the
+    same weights, batch and train probes: loss and gradient norm within
+    TRAIN_CMP_TOL relative; each gradient leaf (before clipping) within
+    TRAIN_CMP_TOL of its own norm, floored at 1e-3 of the whole
+    gradient's; updated parameters within TRAIN_PARAM_TOL; counter, hash
+    and histogram maps bit for bit. A leaf whose name holds one of `noise`
+    has a gradient that is zero in exact arithmetic: its largest gradient
+    must be below NOISE_GRAD on both devices and its move within
+    Adafactor's bound (optim/optimizers.adafactor_move_bound) on both,
+    since its direction is rounding noise."""
+    from repro_torch.core.runtime import to_numpy
+    from repro_torch.models import registry as MR
+    from repro_torch.optim import optimizers as TO, tree_leaves, tree_map
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+    gen = torch.Generator()
+    gen.manual_seed(SEED)
+    params = MR.init_params(small, gen, "cpu")
+    names = TO.tree_paths(params)
+    is_noise = [any(s in n for s in noise) for n in names]
+    if noise and (tcfg.optimizer != "adafactor" or not any(is_noise)):
+        fail(f"{what}: the noise leaves {noise} need Adafactor and a leaf")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        # the gradients the step takes, before clipping and the update
+        pg = tree_map(lambda t: t.detach().to(dev).requires_grad_(True),
+                      params)
+        b = {k: torch.as_tensor(v) for k, v in batch_np.items()}
+        b = {k: (v if v.is_floating_point() else v.to(torch.int64)).to(dev)
+             for k, v in b.items()}
+        loss, _ = MR.loss_fn(pg, b, small, remat=tcfg.remat)
+        grads = [g.cpu() for g in torch.autograd.grad(loss,
+                                                      tree_leaves(pg))]
+        del pg, loss
+        rt, _, _ = _train_runtime(cfg=small)
+        p = tree_map(lambda t: t.to(dev), params)
+        state = init_train_state(small, tcfg, rt, device=dev, params=p)
+        state, m = make_train_step(small, tcfg, rt, probe_mode="fused")(
+            state, batch_np)
+        out[dev] = (state, m, to_numpy(state["maps"]), grads)
+    (sg, mg, mapg, gg), (sc, mc, mapc, gc_) = out["cuda"], out["cpu"]
+    floor = 1e-3 * float(torch.sqrt(sum(w.square().sum() for w in gc_)))
+    d_g = max(float((g - w).norm()) / max(float(w.norm()), floor)
+              for g, w, z in zip(gg, gc_, is_noise) if not z)
+    d_loss = abs(float(mg["loss"]) - float(mc["loss"]))
+    d_gn = abs(float(mg["grad_norm"]) - float(mc["grad_norm"]))
+    pg_, pc_, p0 = (tree_leaves(sg["params"]), tree_leaves(sc["params"]),
+                    tree_leaves(params))
+    d_p = max(float((a.cpu() - b).abs().max())
+              for a, b, z in zip(pg_, pc_, is_noise) if not z)
+    if not (d_loss <= TRAIN_CMP_TOL * abs(float(mc["loss"]))
+            and d_gn <= TRAIN_CMP_TOL * float(mc["grad_norm"])
+            and d_g <= TRAIN_CMP_TOL and d_p <= TRAIN_PARAM_TOL):
+        fail(f"{what} card vs CPU: loss {d_loss:.2e}, grad norm "
+             f"{d_gn:.2e}, worst gradient leaf {d_g:.2e} (relative, limit "
+             f"{TRAIN_CMP_TOL}), params {d_p:.2e} (limit {TRAIN_PARAM_TOL})")
+    for name in ("tr_layer_counts", "tr_key_hash", "tr_gnorm_hist"):
+        for f in mapc[name]:
+            if not (mapg[name][f] == mapc[name][f]).all():
+                fail(f"{what}: map {name}.{f} differs between card and CPU")
+    held = {}
+    lr = float(mc["lr"])
+    for i, z in enumerate(is_noise):
+        if not z:
+            continue
+        g_max = max(float(gg[i].abs().max()), float(gc_[i].abs().max()))
+        moves = [TO.adafactor_move_bound(
+            p0[i], after.cpu(), lr, getattr(torch, tcfg.param_dtype),
+            weight_decay=tcfg.weight_decay) for after in (pg_[i], pc_[i])]
+        if not g_max < NOISE_GRAD or any(r > b for r, b in moves):
+            fail(f"{what}: the noise-trained leaf {names[i]}: largest "
+                 f"gradient {g_max:.2e} (limit {NOISE_GRAD}), move RMS "
+                 f"{[r for r, _ in moves]} (bound {moves[0][1]:.3e})")
+        held[names[i]] = {"max_abs_grad": g_max, "move_rms_card":
+                          moves[0][0], "move_rms_cpu": moves[1][0],
+                          "move_bound": moves[0][1],
+                          "card_vs_cpu": float((pg_[i].cpu() - pc_[i])
+                                               .abs().max())}
+    print(f"  {what}, one step: loss {float(mc['loss']):.6f}; card vs CPU "
+          f"abs diff loss {d_loss:.2e}, grad norm {d_gn:.2e} (relative "
+          f"limit {TRAIN_CMP_TOL}), worst gradient leaf {d_g:.2e} relative "
+          f"(limit {TRAIN_CMP_TOL}), params max {d_p:.2e} (limit "
+          f"{TRAIN_PARAM_TOL}); counter, hash and histogram maps equal"
+          + "".join(f"; noise-trained leaf {n}: largest gradient "
+                    f"{h['max_abs_grad']:.2e} (limit {NOISE_GRAD}), move RMS "
+                    f"card {h['move_rms_card']:.3e} / CPU "
+                    f"{h['move_rms_cpu']:.3e} within Adafactor's bound "
+                    f"{h['move_bound']:.3e}, card vs CPU "
+                    f"{h['card_vs_cpu']:.2e} apart" for n, h in held.items()),
+          flush=True)
+    return {"loss_diff": d_loss, "grad_norm_diff": d_gn,
+            "grad_leaf_rel_diff": d_g, "param_diff": d_p,
+            "noise_leaves": held}
+
+
+def families_train_card_vs_cpu(torch, ops, registry, seq=256, batch=2):
+    """(f): one training step of llama4-scout, mamba2, seamless (one row of
+    4096 frames and tokens: the f32 flash backward, non-causal in the
+    encoder)
+    and qwen2-vl (patch-grid M-RoPE ids) at smoke width, f32, TF32 off, at
+    each family's preset optimizer, card against CPU (step_card_vs_cpu).
+    llama4-scout's router (top-1: every gate is 1, renormalised over the
+    one chosen expert) is held as a noise-trained leaf. The card's
+    launches are counted."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.launch import presets
+    from repro_torch.models import layers as ML
+    out, launches = {}, None
+    for arch in (LLAMA4, MAMBA2, SEAMLESS, QWEN2_VL):
+        small = registry.smoke(arch)
+        S, B = (TRAIN_SEQ, 1) if arch == SEAMLESS else (seq, batch)
+        tcfg = presets.train_config(arch, param_dtype="float32",
+                                    microbatch=0, warmup=0, total_steps=10)
+        b = SyntheticDataset(small, ShapeConfig("cmp", S, B, "train"),
+                             tcfg, seed=SEED).next()
+        if arch == QWEN2_VL:
+            b["positions"] = ML.mrope_grid_positions(
+                *SMOKE_GRID, b["tokens"].shape[-1], B).numpy()
+        noise = ("router",) if small.experts_per_token == 1 else ()
+        what = f"phase 13 (f) {arch} at smoke width (f32, {tcfg.optimizer})"
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        out[arch] = step_card_vs_cpu(torch, small, tcfg, b, what, noise)
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        out[arch]["launches"] = got
+        launches = got if launches is None else {
+            k: launches[k] + got[k] for k in got}
+    out["launches"] = launches
+    return out
+
+
+def phase13(torch, ops, FA, ref, registry):
+    """(e), then (a)-(d), then (f); returns the results and the launches
+    of the paths (a)-(d) and (f)."""
+    from repro_torch.models import (encdec as ED, layers as ML, moe as MOE,
+                                    ssm as SSM)
+    out = {}
+    print("  (e) the flash backward at the training paths' shapes",
+          flush=True)
+    out["flash_bwd"], out["flash_fwd"] = flash_bwd_paths(torch, FA, ref)
+    runs = [("mamba2", MAMBA2, "(a)", MAMBA2_BATCH, 0, None, None,
+             {"chunk_scan": (SSM, "chunk_scan"),
+              "ssd_chunked": (SSM, "ssd_chunked")}),
+            ("seamless", SEAMLESS, "(b)", SEAMLESS_BATCH, 0, None, None,
+             {"encode": (ED, "encode")}),
+            ("qwen2_vl", QWEN2_VL, "(c)", QWEN2_VL_BATCH, QWEN2_VL_MICRO,
+             TRAIN_CUT_LAYERS, VLM_GRID,
+             {"attention_block": (ML, "attention_block")}),
+            ("llama4", LLAMA4, "(d)", LLAMA4_BATCH, 0, TRAIN_CUT_LAYERS,
+             None, {f: (MOE, f) for f in ("route", "experts", "combine")})]
+    for key, arch, label, batch, micro, cut, grid, ranges in runs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[key] = family_train(torch, ops, registry, arch,
+                                f"phase 13 {label}", batch, ranges,
+                                micro=micro, cut=cut, grid=grid)
+    out["smoke"] = families_train_card_vs_cpu(torch, ops, registry)
+    launches = {k: sum(out[r[0]]["launches"][k] for r in runs)
+                + out["smoke"]["launches"][k]
+                for k in out["smoke"]["launches"]}
+    return out, launches
+
+
+
 def card_line() -> str:
     """The card's name and power limit as nvidia-smi prints them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3666,7 +4194,8 @@ def main(argv=None):
     # phase 11's shapes too: llama4-scout's block and logits, the router's
     # moe.load ([16]) and moe.drops ([1]), mamba2's block and logits; and
     # phase 12's: seamless's enc.in/enc.block and decode.logits, qwen2-vl's
-    # block and logits
+    # block and logits; and phase 13's block entries: mamba2's, qwen2-vl's
+    # and llama4-scout's at 4096 tokens
     ts_err, ts_rows = check_tensor_stats(torch, TS, ref, ref.to_fx, [
         ((4, 1, d), bf16, False), ((4, 1, d), bf16, True),
         ((4, 1, pv), f32, True), ((2, 4096, d), bf16, True),
@@ -3675,7 +4204,8 @@ def main(argv=None):
         ((4, 1, 202240), f32, True), ((4, 1, 1536), bf16, False),
         ((4, 1, 50432), f32, True), ((4, 4096, 1024), bf16, True),
         ((4, 1, 256256), f32, True), ((4, 1, 8192), bf16, False),
-        ((4, 1, 152064), f32, False)])
+        ((4, 1, 152064), f32, False), ((4, 4096, 1536), bf16, True),
+        ((1, 4096, 8192), bf16, False), ((1, 4096, 5120), bf16, True)])
     tomb = dict(tombstones=True, full=False)
     hash_rows = check_hash(torch, HU, ref, M, [
         ("path", 256, L2, dict(tombstones=False, full=False)),
@@ -3932,6 +4462,20 @@ def main(argv=None):
     p12["flash_fwd"] += encvlm["qwen2_vl"]["multimodal"][
         "launches_prefill"]["flash_fwd"]
 
+    # ---- phase 13
+    print("phase 13: the MoE, SSM, encoder-decoder and VLM families trained "
+          "at the reference's presets: the flash backward at their shapes; "
+          f"mamba2-780m and seamless-m4t-medium whole, qwen2-vl-72b and "
+          f"llama4-scout at full width ({TRAIN_CUT_LAYERS} layer), seq "
+          f"{TRAIN_SEQ}, {TRAIN_STEPS} steps; the four at smoke width on the "
+          "card and the CPU", flush=True)
+    t13 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    fam_train, p13 = phase13(torch, ops, FA, ref, registry)
+    fam_train["phase_s"] = time.perf_counter() - t13
+    print(f"  phase 13 took {fam_train['phase_s']:.1f} s", flush=True)
+
     # ---- report
     def pick(rows_, key, val):
         return next(r for r in rows_ if r[key] == val)
@@ -3953,7 +4497,8 @@ def main(argv=None):
                 "library_is": row.get("library_is"),
                 "phase9_launches": p9[name], "phase10_launches": p10[name],
                 "phase11_launches": p11[name],
-                "phase12_launches": p12[name], "shapes": shapes}
+                "phase12_launches": p12[name],
+                "phase13_launches": p13[name], "shapes": shapes}
 
     report = {"kernels": [
         entry("tensor_stats", "tensor_stats.cu",
@@ -3973,10 +4518,12 @@ def main(argv=None):
               "src/repro/kernels/flash_attention.py:35", tl["flash_fwd"],
               fa_fwd["max_abs_err"], fa_fwd,
               [fa_fwd, encvlm["seamless"]["flash_fwd"],
-               encvlm["qwen2_vl"]["flash_fwd"]]),
+               encvlm["qwen2_vl"]["flash_fwd"], *fam_train["flash_fwd"]]),
         entry("flash_bwd", "flash_attention_sm90.cuh",
               "src/repro/kernels/flash_attention.py:130", tl["flash_bwd"],
-              fa_bwd["max_abs_err"], fa_bwd, [fa_bwd]),
+              max(r["max_abs_err"]
+                  for r in [fa_bwd, *fam_train["flash_bwd"]]),
+              fa_bwd, [fa_bwd, *fam_train["flash_bwd"]]),
     ], "serve": {"served": len(served), "rejected": len(reqs) - len(served),
                  "decode_steps": engine_steps,
                  "tokens_per_s": tokens / wall, "events": engine_events,
@@ -3984,6 +4531,7 @@ def main(argv=None):
         "live": live,
         "train": train, "fleet": fleet, "aggregator": aggregator,
         "fuzz": fuzz, "families": families, "encdec_vlm": encvlm,
+        "family_training": fam_train,
         "train_launches_of_serving_kernels": {
             k: tl[k] for k in SERVING_KERNELS},
         "flash_sm90_build": sm90_build, "probe_build": probe_build}

@@ -31,6 +31,18 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_paths(tree, prefix: str = "") -> list:
+    """Names ("/key/index/...") of the tensor leaves, in tree_leaves'
+    order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in tree_paths(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree)
+                for n in tree_paths(t, f"{prefix}/{i}")]
+    return [prefix]
+
+
 def tree_map(fn, tree, *rest):
     """fn over the tensor leaves of `tree`; `rest` are trees whose
     structure continues `tree`'s (at a leaf of `tree` they may hold any
@@ -162,6 +174,22 @@ def adafactor_update(params, grads, opt, lr, *, decay=0.8, eps=1e-30,
 
     new_p, new_f = _unzip(tree_map(upd, params, grads, opt["f"]), 2)
     return new_p, {"f": new_f}
+
+
+def adafactor_move_bound(before, after, lr, dtype, *, weight_decay=0.0,
+                         clip_thresh=1.0) -> tuple[float, float]:
+    """The bound adafactor_update's step puts on a leaf's move, whatever
+    its gradient: the update u is clipped to RMS <= clip_thresh, then
+    p' = p - lr (u + weight_decay p) in f32, rounded to the parameter's
+    `dtype`. So the RMS over the leaf of p' - p + lr weight_decay p is at
+    most lr clip_thresh, plus the RMS of half an ulp of p' for the
+    rounding. `before` and `after` are the leaf before and after the step
+    (any float type). Returns (that RMS, the bound)."""
+    p, q = before.double(), after.double()
+    move = q - p + lr * weight_decay * p
+    half_ulp = q.abs() * (torch.finfo(dtype).eps / 2)
+    return (float(move.square().mean().sqrt()),
+            lr * clip_thresh + float(half_ulp.square().mean().sqrt()))
 
 
 # ----------------------------------------------------------------- factory

@@ -452,9 +452,11 @@ def _flash_case(cuda, BH, BKH, S, hd, dtype, seed):
 
 # (BH, BKH, S, hd): GQA rep 1, 2 and 7; S off the 64-row tile; the path's
 # head dim 64 and the smoke config's 16; one batch row of the training
-# path's shape (S 4096, 14 q / 2 kv heads)
+# path's shape (S 4096, 14 q / 2 kv heads); llama4-scout's row (40 q / 8
+# kv heads of 128: rep 5) and seamless's batch of 2 (16 heads of 64, rep 1)
 FLASH_CASES = [(4, 4, 128, 32), (8, 4, 256, 16), (14, 2, 200, 64),
-               (28, 4, 1024, 64), (4, 2, 100, 128), (14, 2, 4096, 64)]
+               (28, 4, 1024, 64), (4, 2, 100, 128), (14, 2, 4096, 64),
+               (40, 8, 4096, 128), (32, 32, 4096, 64)]
 
 
 @pytest.mark.parametrize("case", FLASH_CASES,
@@ -765,3 +767,108 @@ def test_encdec_and_vlm_on_the_card_equal_the_cpu(cuda, arch):
     for a, b in zip(*got):
         np.testing.assert_allclose(a.cpu().float().numpy(),
                                    b.float().numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "mamba2-780m",
+                                  "seamless-m4t-medium", "qwen2-vl-72b"])
+def test_family_train_step_on_the_card_equals_the_cpu(cuda, arch):
+    """One training step of a smoke-width model (f32, TF32 off) at its
+    family's preset optimizer (Adafactor for llama4-scout and qwen2-vl,
+    AdamW for mamba2 and seamless) on the card and on the CPU from the same
+    weights and batch: seamless at 4096 frames and tokens (the f32 flash
+    kernels, non-causal in the encoder), qwen2-vl with patch-grid M-RoPE
+    ids. Loss and gradient norm within 1e-4 relative, parameters within
+    3e-5. llama4-scout's top-1 router has a gradient that is zero in exact
+    arithmetic (every gate renormalised over one expert is 1): its largest
+    gradient is below 1e-8 on both devices, and its move within
+    Adafactor's bound (optim/optimizers.adafactor_move_bound)."""
+    from repro_torch.configs import registry as R
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.launch import presets
+    from repro_torch.models import layers as ML, registry as MR
+    from repro_torch.optim import optimizers as TO
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+    cfg = R.smoke(arch)
+    tcfg = presets.train_config(arch, param_dtype="float32", microbatch=0,
+                                warmup=0, total_steps=10)
+    S, B = (4096, 1) if cfg.family == "encdec" else (64, 2)
+    batch = SyntheticDataset(cfg, ShapeConfig("cmp", S, B, "train"), tcfg,
+                             seed=0).next()
+    if cfg.rope_kind == "mrope":
+        batch["positions"] = ML.mrope_grid_positions(
+            2, 4, batch["tokens"].shape[-1], B).numpy()
+    params = MR.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    noise = cfg.experts_per_token == 1
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = []
+        for dev in (cuda, torch.device("cpu")):
+            p = MR.params_from_numpy(
+                TE._tree_map(lambda a: a.numpy(), params), dev)
+            b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+            b = {k: v if v.is_floating_point() else v.long()
+                 for k, v in b.items()}
+            leaves = [x.requires_grad_(True) for x in TO.tree_leaves(p)]
+            loss, _ = MR.loss_fn(p, b, cfg, remat=True)
+            grads = torch.autograd.grad(loss, leaves)
+            for x in leaves:
+                x.requires_grad_(False)
+            state = init_train_state(cfg, tcfg, device=dev, params=p)
+            state, m = make_train_step(cfg, tcfg)(state, batch)
+            got.append((float(m["loss"]), float(m["grad_norm"]),
+                        float(m["lr"]), [g.cpu() for g in grads],
+                        [x.cpu() for x in TO.tree_leaves(state["params"])]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (lg, ng, lr, gg, pg), (lc, nc, _, gc, pc) = got
+    assert abs(lg - lc) <= 1e-4 * abs(lc) and abs(ng - nc) <= 1e-4 * nc
+    names, before = TO.tree_paths(params), TO.tree_leaves(params)
+    routers = 0
+    for name, p0, a, c, ga, gc_ in zip(names, before, pg, pc, gg, gc):
+        if noise and "router" in name:
+            routers += 1
+            assert float(ga.abs().max()) < 1e-8, name
+            assert float(gc_.abs().max()) < 1e-8, name
+            for after in (a, c):
+                rms, bound = TO.adafactor_move_bound(
+                    p0, after, lr, torch.float32,
+                    weight_decay=tcfg.weight_decay)
+                assert rms <= bound, (name, rms, bound)
+            continue
+        np.testing.assert_allclose(a.numpy(), c.numpy(), rtol=0, atol=3e-5,
+                                   err_msg=name)
+    # one stacked router leaf (layers on dim 0) for top-1, none held so for
+    # the others
+    assert routers == int(noise)
+
+
+def test_kimi_k8_apply_moe_on_the_card_equals_the_cpu(cuda):
+    """kimi-k2 at smoke width with 16 experts and k = 8: combine's
+    index_add_ adds eight contributions a token in any order on the card.
+    Two runs of apply_moe on the card, each within 1e-4 of the CPU; their
+    largest difference is printed (PERF.md)."""
+    import dataclasses
+    from repro_torch.configs import registry as R
+    from repro_torch.models import moe as MOE
+    cfg = dataclasses.replace(R.smoke("kimi-k2-1t-a32b"), num_experts=16,
+                              experts_per_token=8)
+    p = MOE.init_moe(torch.Generator().manual_seed(0), cfg, "cpu")
+    x = torch.randn(2, 32, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        pc = {k: v.to(cuda) for k, v in p.items()}
+        runs = [MOE.apply_moe(pc, x.to(cuda), cfg).cpu() for _ in range(2)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    want = MOE.apply_moe(p, x, cfg)
+    for r in runs:
+        np.testing.assert_allclose(r.numpy(), want.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+    print(f"kimi-k2 k=8 apply_moe on the card: two runs differ by at most "
+          f"{float((runs[0] - runs[1]).abs().max()):.3e}; card vs CPU "
+          f"{max(float((r - want).abs().max()) for r in runs):.3e}")

@@ -35,6 +35,10 @@ MODEL_TOL = 1e-4    # a whole model's logits, caches and loss (f32)
 STAT_TOL = 2e-5     # the collector's Q47.16 stat lanes
 ADMIT_LIMIT = 12
 LLAMA4 = "llama4-scout-17b-a16e"
+KIMI = "kimi-k2-1t-a32b"
+# kimi-k2 at 16 experts and k = 8 (registry.smoke caps k at 2): combine
+# adds eight contributions a token
+KIMI_K8 = dict(num_experts=16, experts_per_token=8)
 INFO_INTS = ("gids", "sort_idx", "sorted_eids", "pos_c", "tok_idx", "keep")
 
 
@@ -49,12 +53,13 @@ def to_torch(tree):
 
 # ------------------------------------------------------------ the MoE layer
 
-def _moe_case(arch, tie):
-    """Both configs (capacity factor 0.5, so the capacity drops), the
-    layer's weights in each package and x [2, 32, D]. tie: router columns 1
-    and 2 are zero, so experts 1 and 2 get exactly equal gates, and with
-    k = 2 they meet at the top-k boundary."""
-    jc, tc = both_cfgs(arch, capacity_factor=0.5)
+def _moe_case(arch, tie, **over):
+    """Both configs (capacity factor 0.5 unless `over` says otherwise, so
+    the capacity drops), the layer's weights in each package and x [2, 32,
+    D]. tie: router columns 1 and 2 are zero, so experts 1 and 2 get
+    exactly equal gates, and they meet at the top-k boundary in some
+    rows."""
+    jc, tc = both_cfgs(arch, **{"capacity_factor": 0.5, **over})
     npp = jax.tree.map(np.asarray, JMOE.init_moe(jax.random.PRNGKey(1), jc))
     npp = {k: np.array(v) for k, v in npp.items()}
     if tie:
@@ -64,11 +69,15 @@ def _moe_case(arch, tie):
     return jc, tc, npp, TMR.params_from_numpy(npp, CPU), x
 
 
+ROUTE_CASES = [(LLAMA4, {}), ("jamba-v0.1-52b", {}), (KIMI, KIMI_K8),
+               (KIMI, dict(KIMI_K8, capacity_factor=1.0))]
+
+
 @pytest.mark.parametrize("tie", [False, True], ids=["random", "tie"])
-@pytest.mark.parametrize("arch", [LLAMA4, "jamba-v0.1-52b"],
-                         ids=["top1", "top2"])
-def test_route_integers_match_jax_at_a_dropping_capacity(arch, tie):
-    jc, tc, npp, tp, x = _moe_case(arch, tie)
+@pytest.mark.parametrize("arch,over", ROUTE_CASES,
+                         ids=["top1", "top2", "top8", "top8-cf1"])
+def test_route_integers_match_jax_at_a_dropping_capacity(arch, over, tie):
+    jc, tc, npp, tp, x = _moe_case(arch, tie, **over)
     jd, ji = JMOE.route(npp, jnp.asarray(x), jc)
     td, ti = TMOE.route(tp, torch.as_tensor(x), tc)
     assert TMOE.capacity(tc, 64) == JMOE.capacity(jc, 64)
@@ -78,9 +87,9 @@ def test_route_integers_match_jax_at_a_dropping_capacity(arch, tie):
     assert ti["T"] == ji["T"]
     assert int((~ti["keep"]).sum()) > 0, "the capacity should drop"
     if tie:
-        top2 = ti["gids"].numpy()
+        gids = ti["gids"].numpy()
         # rows where expert 1 won the tie for the last slot over expert 2
-        assert ((top2[:, -1] == 1) & (top2[:, 0] != 2)).any()
+        assert ((gids[:, -1] == 1) & ~(gids == 2).any(-1)).any()
     np.testing.assert_allclose(ti["gvals"].numpy(), np.asarray(ji["gvals"]),
                                rtol=TOL, atol=TOL)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=TOL,
@@ -116,10 +125,10 @@ def assert_tapes_match(tr, jr):
                                rtol=STAT_TOL, atol=STAT_TOL * TE.FX_ONE)
 
 
-@pytest.mark.parametrize("arch", [LLAMA4, "jamba-v0.1-52b"],
-                         ids=["top1", "top2"])
-def test_apply_moe_probes_and_aux_loss_match_jax(arch):
-    jc, tc, npp, tp, x = _moe_case(arch, tie=False)
+@pytest.mark.parametrize("arch,over", ROUTE_CASES[:3],
+                         ids=["top1", "top2", "top8"])
+def test_apply_moe_probes_and_aux_loss_match_jax(arch, over):
+    jc, tc, npp, tp, x = _moe_case(arch, tie=False, **over)
     jy, jr = _probe_rows(
         JE, lambda: JMOE.apply_moe(npp, jnp.asarray(x), jc))
     ty, tr = _probe_rows(
@@ -156,8 +165,8 @@ def test_unprobed_moe_computes_no_router_stats():
 
 # ------------------------------------------------------------ whole families
 
-def family_weights(arch):
-    jc, tc = JCFG.smoke(arch), TCFG.smoke(arch)
+def family_weights(arch, **over):
+    jc, tc = both_cfgs(arch, **over)
     jp = JMR.init_params(jax.random.PRNGKey(0), jc)
     return jc, tc, jp, to_torch(jp)
 
@@ -294,6 +303,20 @@ def llama4():
 
 def test_llama4_forward_decode_and_loss_match_jax(llama4):
     check_family_forward(llama4)
+
+
+# the configs no other test names, each on its own path: LayerNorm, a
+# non-gated GeLU and learned biases (starcoder2); tied embeddings (phi4-mini,
+# llama3.2); 16 experts at k = 8 (kimi-k2)
+OTHER_FAMILY_CASES = [("starcoder2-15b", {}), ("phi4-mini-3.8b", {}),
+                      ("llama3.2-1b", {}), (KIMI, KIMI_K8)]
+
+
+@pytest.mark.parametrize("arch,over", OTHER_FAMILY_CASES,
+                         ids=["starcoder2-15b", "phi4-mini-3.8b",
+                              "llama3.2-1b", "kimi-k2-16e-top8"])
+def test_family_forward_decode_and_loss_match_jax(arch, over):
+    check_family_forward(family_weights(arch, **over))
 
 
 def test_llama4_serves_as_jax_with_the_moe_probes(llama4):
