@@ -201,7 +201,25 @@ Phases:
      4096) and qwen2-vl (grid ids) at smoke width, f32, TF32 off, at each
      preset's optimizer, card against CPU as phase 8; llama4-scout's top-1
      router, whose gradient is zero in exact arithmetic, held to a
-     gradient below 1e-8 and a move within Adafactor's bound.
+     gradient below 1e-8 and a move within Adafactor's bound;
+ 14. the examples' twins, the cached exported step and log2_histogram, in
+     a temporary directory it deletes: (a) each of examples/torch/ with
+     --device cuda (train_e2e for 20 steps, then --resume to 30): the
+     single-process twins through main() in this process, tensor_stats
+     launched once per collected event; fleet_agg and chaos_drill as
+     subprocesses; each must exit 0 and print the lines its CPU test
+     asserts; wall s of each. (b) phase 3's serving again, every probed
+     decode tape recorded with the maps it started from and the eager
+     fused lane's result; two spawned workers (the port alone) build phase
+     3's runtime and boot its probe stage through aot_step on one fresh
+     cache directory: the first must miss and store, the second hit; both
+     run every tape, bit for bit the eager result, with one hash and one
+     ring-buffer launch a call; export s, load ms, bytes stored, device
+     and host us a call of the exported and the eager stage. Then a
+     FaultPlan(corrupt_artifact=1.0) drill (detected, dropped, traced
+     again, hit) and a scan-lane stage (run eagerly, unexportable 1,
+     nothing stored). (c) log2_histogram of 64 Mi f32 with the special
+     values, card against CPU bit for bit, and its device ms.
 
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}. Any failure exits
@@ -533,6 +551,30 @@ def _stats_input(torch, gen, shape, dtype, seed_bad):
     return x.to(dtype)
 
 
+def route_host_us(torch, row, name, args, got, what):
+    """Adds to `row` the host's us a call of the public wrapper
+    `kernels.ops.<name>` (the eager route, which skips the dispatcher) and
+    of the custom operator `torch.ops.repro_torch.<name>` (the route of an
+    exported step); fails unless the operator gives `got` bit for bit with
+    one launch of the kernel."""
+    from repro_torch.kernels import ops
+    op = getattr(torch.ops.repro_torch, name)
+    torch.cuda.synchronize()
+    before = ops.launch_counts()
+    out = op(*args)
+    torch.cuda.synchronize()
+    kernel = "tensor_stats" if name == "tensor_stats_row" else name
+    launched = ops.launch_counts()[kernel] - before[kernel]
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    gots = got if isinstance(got, (tuple, list)) else (got,)
+    if launched != 1 or not all(torch.equal(a, b) for a, b in zip(outs, gots)):
+        fail(f"{what}: the custom operator launched {launched} times or "
+             "differs from the kernel's wrapper")
+    row["wrapper_host_us"] = host_us(torch, lambda: getattr(ops, name)(*args),
+                                     200)
+    row["op_host_us"] = host_us(torch, lambda: op(*args), 200)
+
+
 def check_tensor_stats(torch, TS, ref, to_fx, shapes):
     """Both entries against the plain versions at each shape: stats within
     STATS_TOL, counts exact, the row's header and counts exact, its Q47.16
@@ -589,6 +631,7 @@ def check_tensor_stats(torch, TS, ref, to_fx, shapes):
                   plain=lambda: ref.tensor_stats_row(x, 3, 1, 17),
                   plain_reps=max(reps // 10, 5))
         r["bound_ms"], r["bound_by"] = bound_ms(nbytes + 16 * 8, 8.0 * n)
+        route_host_us(torch, r, "tensor_stats_row", (x, 3, 1, 17), row, what)
         r["gb_per_s"] = nbytes / r["ms"] / 1e6
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
         rows.append(r)
@@ -597,10 +640,11 @@ def check_tensor_stats(torch, TS, ref, to_fx, shapes):
               f"({r['launches_per_call']:.0f} a call; back to back "
               f"{r['queued_ms'] * 1e3:.2f} us a call; {r['gb_per_s']:.1f} "
               f"GB/s, {100 * r['share_of_bound']:.1f} % of the bound), host "
-              f"{r['host_us']:.1f} us a call, calls back-to-back on the host "
-              f"{r['call_ms'] * 1e3:.2f} us, plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms'] * 1e3:.4f} us ({r['bound_by']})",
-              flush=True)
+              f"{r['host_us']:.1f} us a call (ops {r['wrapper_host_us']:.1f}"
+              f", torch.ops {r['op_host_us']:.1f}), calls back-to-back on "
+              f"the host {r['call_ms'] * 1e3:.2f} us, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.4f} us "
+              f"({r['bound_by']})", flush=True)
     return worst, rows
 
 
@@ -651,11 +695,15 @@ def check_hash(torch, HU, ref, M, cases):
                   plain=lambda: ref.hash_fetch_add_batch(*dev))
         r["bound_ms"], r["bound_by"] = bound_ms(batch * 17 + 6 * n * 8,
                                                 4.0 * batch)
+        route_host_us(torch, r, "hash_fetch_add_batch", dev, got,
+                      f"hash {label}")
         rows.append(r)
         print(f"  hash {label} n={n} B={batch} ({route} route): device "
               f"{r['ms'] * 1e3:.2f} us a launch ({r['launches_per_call']:.0f}"
               f" a call; back to back {r['queued_ms'] * 1e3:.2f} us a call), "
-              f"host {r['host_us']:.1f} us a call, calls back-to-back on the "
+              f"host {r['host_us']:.1f} us a call (ops "
+              f"{r['wrapper_host_us']:.1f}, torch.ops {r['op_host_us']:.1f})"
+              f", calls back-to-back on the "
               f"host {r['call_ms'] * 1e3:.2f} us, plain {r['plain_ms']:.3f} "
               "ms, "
               f"bound {r['bound_ms'] * 1e3:.4f} us ({r['bound_by']}), "
@@ -688,12 +736,15 @@ def check_ringbuf(torch, RB, ref, cases):
             batch + batch * width * 8 + 2 * cap * width * 8 + 32,
             2.0 * batch)
         r["laps"] = int(got[2][0] - dropped[0])
+        route_host_us(torch, r, "ringbuf_emit_batch", dev, got,
+                      f"ringbuf {label}")
         rows.append(r)
         print(f"  ringbuf {label} cap={cap} B={batch} W={width}: device "
               f"{r['ms'] * 1e3:.2f} us a launch (back to back "
               f"{r['queued_ms'] * 1e3:.2f} us a call), host "
-              f"{r['host_us']:.1f} us a call, calls back-to-back on the host "
-              f"{r['call_ms'] * 1e3:.2f} us, plain "
+              f"{r['host_us']:.1f} us a call (ops {r['wrapper_host_us']:.1f}"
+              f", torch.ops {r['op_host_us']:.1f}), calls back-to-back on "
+              f"the host {r['call_ms'] * 1e3:.2f} us, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms'] * 1e3:.4f} us "
               f"({r['bound_by']}), {r['laps']} laps, bit-identical",
               flush=True)
@@ -4136,6 +4187,446 @@ def phase13(torch, ops, FA, ref, registry):
 
 
 
+# --------------------------------------------------------------------------
+# phase 14: the examples' twins, the cached exported step, log2_histogram
+# --------------------------------------------------------------------------
+
+TWINS = ROOT / "examples" / "torch"
+# twin -> (arguments beside --device cuda, runs in this process, the lines
+# it must print: those tests/test_examples_smoke.py asserts of its JAX twin,
+# and tests/test_torch_examples.py of it)
+TWIN_RUNS = [
+    ("quickstart.py", [], True, ["step 4: loss=", "per-layer probe hits"]),
+    ("serve_demo.py", [], True, ["per-request generated tokens",
+                                 "decode steps run:"]),
+    ("train_e2e.py", ["--steps", "20"], True,
+     ["model: 64M params", "latest checkpoint: step 20"]),
+    ("train_e2e.py", ["--steps", "30", "--resume"], True,
+     ["resumed from step 20", "latest checkpoint: step 30"]),
+    ("moe_balance.py", [], True, ["total capacity drops across run:"]),
+    ("opensnoop_syscalls.py", [], True,
+     ["latest committed checkpoint: step 8", "OK"]),
+    ("trace_training.py", [], True,
+     ["did NOT restart", "jit cache of the running step stayed 1"]),
+    ("fleet_agg.py", [], False,
+     ["global total=768 (= 3 workers x 256 events)",
+      "OK: global histogram is the exact bin-wise sum", "(AOT cache hit)",
+      "12 workers -> 3 node aggregators (fan-in 4)",
+      "OK: hierarchical tree view is bit-identical to the flat merge"]),
+    ("chaos_drill.py", [], False,
+     ["SIGKILLed mid-publish (seqlock left odd)",
+      "daemon restarted from the fold journal",
+      "OK: global view converged to the oracle",
+      "OK: chaos drill survived worker SIGKILL + daemon crash"]),
+]
+AOT_KEY = ("chip_smoke phase 14",)
+HIST_N = 1 << 26
+
+
+def run_twins(torch, ops, tmp):
+    """(a): each twin with --device cuda; the single-process ones in this
+    process through main(), with the launches and the collected events
+    around each call, the others as subprocesses. Returns one row a run."""
+    import contextlib
+    import importlib.util
+    import io
+    import os
+    import tempfile
+    from repro_torch.core import events as E
+
+    emitted = [0]
+    emit_row = E.Collector.emit_row
+
+    def counting(self, row):
+        emitted[0] += 1
+        return emit_row(self, row)
+
+    rows = []
+    env = dict(os.environ, PYTHONPATH=str(SRC), TMPDIR=tmp,
+               BPFTIME_SHM=os.path.join(tmp, "shm"))
+    for twin, args, inproc, lines in TWIN_RUNS:
+        argv = ["--device", "cuda", *args]
+        what = f"phase 14 (a) {twin} {' '.join(args)}".strip()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        emitted[0] = 0
+        t0 = time.perf_counter()
+        if inproc:
+            spec = importlib.util.spec_from_file_location(
+                f"twin_{twin[:-3]}", TWINS / twin)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            out = io.StringIO()
+            old_tmp, old_shm = tempfile.tempdir, os.environ.get("BPFTIME_SHM")
+            tempfile.tempdir = tmp
+            os.environ["BPFTIME_SHM"] = env["BPFTIME_SHM"]
+            E.Collector.emit_row = counting
+            try:
+                with contextlib.redirect_stdout(out):
+                    rc = mod.main(argv)
+            finally:
+                E.Collector.emit_row = emit_row
+                tempfile.tempdir = old_tmp
+                if old_shm is None:
+                    os.environ.pop("BPFTIME_SHM")
+                else:
+                    os.environ["BPFTIME_SHM"] = old_shm
+            torch.cuda.synchronize()
+            text = out.getvalue()
+        else:
+            res = subprocess.run([sys.executable, str(TWINS / twin), *argv],
+                                 capture_output=True, text=True, env=env,
+                                 cwd=tmp, timeout=400)
+            rc, text = res.returncode, res.stdout
+            if rc != 0:
+                print(res.stderr[-3000:], file=sys.stderr)
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        if rc != 0:
+            fail(f"{what} exited {rc}:\n{text[-2000:]}")
+        missing = [ln for ln in lines if ln not in text]
+        if missing:
+            fail(f"{what} did not print {missing}:\n{text[-2000:]}")
+        if inproc and launches["tensor_stats"] != emitted[0]:
+            fail(f"{what}: tensor_stats launched {launches['tensor_stats']} "
+                 f"times for {emitted[0]} collected events")
+        row = {"twin": twin, "args": args, "wall_s": wall,
+               "events": emitted[0] if inproc else None,
+               "launches": launches}
+        if twin == "fleet_agg.py":
+            row["late_join"] = next(ln for ln in text.splitlines()
+                                    if "late joiner" in ln)
+        print(f"  {twin} {' '.join(args)}: exit 0 in {wall:.1f} s, events "
+              f"{row['events']}, kernels {json.dumps(launches)}", flush=True)
+        rows.append(row)
+    return rows
+
+
+def record_decode_tapes(torch, cfg):
+    """Phase 3's serving (same seed, weights, requests and probes) with
+    every probed decode step's tape, the maps it started from, its step and
+    the maps the eager fused lane made of it recorded."""
+    engine, reqs = serve(torch, cfg, "cuda")
+    dec = engine._decode
+    tapes = []
+
+    def recording(params, tokens, cache, maps, step):
+        out = dec(params, tokens, cache, maps, step)
+        recording.last = dec.last             # the engine reads it
+        if dec.last is not None:
+            rows, maps_in, st, _ = dec.last
+            tapes.append((rows, maps_in, st, out[3]))
+        return out
+
+    recording.last = None
+    engine._decode = recording
+    engine.submit_all(reqs)
+    torch.cuda.synchronize()
+    if len(tapes) != engine.step_count or not tapes:
+        fail(f"phase 14 (b): {len(tapes)} tapes for {engine.step_count} "
+             "decode steps")
+    return engine, tapes
+
+
+def aot_runtime(cfg):
+    """Phase 3's serving runtime: the admission filter and SERVE_PROBES."""
+    from repro_torch.core.runtime import BpftimeRuntime
+    from repro_torch.launch import serve as L
+    rt = BpftimeRuntime()
+    pid = rt.load_asm("admit", L.admit_filter_text(12), [], "filter")
+    rt.attach(pid, "filter:sys_serve_admit")
+    L.attach_serve_probes(rt, L.family_probes(cfg))
+    return rt
+
+
+def _stage_args(torch, rows, maps_in, step, device="cuda"):
+    from repro_torch.core import jit as J
+    return (rows, maps_in, J.make_aux(time_ns=step, device=device))
+
+
+def _stage_factory(rt, mode=None):
+    return lambda: (lambda r, m, a: rt.probe_stage(r, m, a, mode=mode))
+
+
+def _tapes_npz(torch, tapes, path):
+    import numpy as np
+    from repro_torch.core.runtime import to_numpy
+    arrays = {}
+    for k, (rows, maps_in, st, _) in enumerate(tapes):
+        arrays[f"{k}/rows"] = rows.cpu().numpy()
+        arrays[f"{k}/step"] = np.asarray(st)
+        for name, fields in to_numpy(maps_in).items():
+            for f, a in fields.items():
+                arrays[f"{k}/maps/{name}/{f}"] = a
+    np.savez(path, **arrays)
+
+
+def _load_tapes(torch, path):
+    import numpy as np
+    with np.load(path) as z:
+        n = 1 + max(int(k.split("/")[0]) for k in z.files)
+        out = []
+        for k in range(n):
+            maps = {}
+            for key in z.files:
+                parts = key.split("/")
+                if parts[0] == str(k) and parts[1] == "maps":
+                    maps.setdefault(parts[2], {})[parts[3]] = \
+                        torch.from_numpy(z[key]).cuda()
+            out.append(_stage_args(torch, torch.from_numpy(
+                z[f"{k}/rows"]).cuda(), maps, int(z[f"{k}/step"])))
+    return out
+
+
+def aot_child(src: str, spec_path: str, out_path: str) -> None:
+    """A booting worker of phase 14 (b) (started with spawn, the port
+    alone): phase 3's runtime on the card, its probe stage booted through
+    aot_step on the given cache directory, then run over every recorded
+    tape (launches counted per call) and timed beside the eager stage."""
+    sys.path.insert(0, src)
+    sys.modules["jax"] = None
+    sys.modules["repro"] = None
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core import events as E
+    from repro_torch.core.runtime import to_numpy
+    from repro_torch.kernels import build, ops
+    with open(spec_path) as f:
+        spec = json.load(f)
+    for name in spec["sites"]:                  # the parent's site ids
+        E.SITES.get_or_create(name)
+    build.build_all()                           # the parent's libraries
+    rt = aot_runtime(registry.get(spec["arch"]))
+    cache = rt.enable_artifact_cache(spec["cache"])
+    tapes = _load_tapes(torch, spec["tapes"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step, hit = rt.aot_step(_stage_factory(rt), tapes[0],
+                            extra_key=AOT_KEY + (tapes[0][0].shape[0],))
+    boot_s = time.perf_counter() - t0
+    arrays, per_call = {}, []
+    for k, args in enumerate(tapes):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        maps, _ = step(*args)
+        torch.cuda.synchronize()
+        per_call.append(ops.launch_counts())
+        for name, fields in to_numpy(maps).items():
+            for f, a in fields.items():
+                arrays[f"{k}/{name}/{f}"] = a
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rt.probe_stage(*tapes[0])
+    torch.cuda.synchronize()
+    eager_call = ops.launch_counts()
+    times = {}
+    for what, fn in (("exported", lambda: step(*tapes[0])),
+                     ("eager", lambda: rt.probe_stage(*tapes[0]))):
+        times[what] = {"device_us": cuda_ms(torch, fn, 50) * 1e3,
+                       "host_us": host_us(torch, fn, 50)}
+    np.savez(out_path, **arrays)
+    with open(out_path + ".json", "w") as f:
+        json.dump({"hit": hit, "boot_s": boot_s,
+                   "counters": dict(cache.counters),
+                   "bytes": cache.stats()["bytes"],
+                   "export_error": rt.last_export_error,
+                   "per_call": per_call, "eager_call": eager_call,
+                   "times": times}, f)
+
+
+def boot_in_subprocess(spec_path: str, out_path: str) -> dict:
+    import numpy as np
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    p = ctx.Process(target=aot_child, args=(str(SRC), spec_path, out_path))
+    p.start()
+    p.join(timeout=400)
+    if p.is_alive():
+        p.kill()
+        p.join()
+        fail("phase 14 (b): a booting worker did not finish in 400 s")
+    if p.exitcode != 0:
+        fail(f"phase 14 (b): a booting worker exited {p.exitcode}")
+    with open(out_path + ".json") as f:
+        info = json.load(f)
+    with np.load(out_path) as z:
+        info["maps"] = {k: z[k] for k in z.files}
+    return info
+
+
+def _maps_bad(got, want, k=None) -> list:
+    """The fields of the map states `want` (tensors) that differ in `got`:
+    map states too, or with `k` a flat dict of tape k's ("k/name/field")."""
+    import numpy as np
+    from repro_torch.core.runtime import to_numpy
+    if k is None:
+        got = {f"{name}/{f}": a for name, st in to_numpy(got).items()
+               for f, a in st.items()}
+    return [f"{name}.{f}" for name, st in to_numpy(want).items()
+            for f, a in st.items()
+            if not np.array_equal(got[f"{name}/{f}" if k is None
+                                      else f"{k}/{name}/{f}"], a)]
+
+
+def aot_full_width(torch, ops, cfg, tmp):
+    """(b): phase 3's decode tapes, booted through aot_step in two spawned
+    workers (a miss that stores, then a hit), a corrupted entry, and a
+    scan-lane stage."""
+    import os
+    from repro_torch.core import events as E, faults as F
+    engine, tapes = record_decode_tapes(torch, cfg)
+    n_ev = tapes[0][0].shape[0]
+    if any(t[0].shape[0] != n_ev for t in tapes):
+        fail("phase 14 (b): the decode tapes differ in length")
+    print(f"  (b) {len(tapes)} decode tapes of {n_ev} events recorded",
+          flush=True)
+    tapes_path = os.path.join(tmp, "tapes.npz")
+    _tapes_npz(torch, tapes, tapes_path)
+    known = E.SITES.known()
+    spec = {"sites": sorted(known, key=known.get), "arch": cfg.name,
+            "cache": os.path.join(tmp, "cache"), "tapes": tapes_path}
+    spec_path = os.path.join(tmp, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    boots = [boot_in_subprocess(spec_path, os.path.join(tmp, f"boot{i}.npz"))
+             for i in range(2)]
+    first, second = boots
+    if first["hit"] or first["counters"]["stores"] != 1 or \
+            first["export_error"] is not None:
+        fail(f"phase 14 (b): the first worker did not trace and store: "
+             f"{first['counters']}, {first['export_error']}")
+    if not second["hit"] or second["counters"]["hits"] != 1 or \
+            second["counters"]["stores"] != 0:
+        fail(f"phase 14 (b): the second worker missed: "
+             f"{second['counters']}")
+    for b in boots:
+        for k, (_, _, _, want) in enumerate(tapes):
+            bad = _maps_bad(b["maps"], want, k)
+            if bad:
+                fail(f"phase 14 (b): tape {k}: {bad} differ from the eager "
+                     "fused lane")
+        per = {name: {c[name] for c in b["per_call"]}
+               for name in ("hash_fetch_add_batch", "ringbuf_emit_batch",
+                            "tensor_stats", "table_interp")}
+        if per != {"hash_fetch_add_batch": {1}, "ringbuf_emit_batch": {1},
+                   "tensor_stats": {0}, "table_interp": {0}} or \
+                b["eager_call"]["hash_fetch_add_batch"] != 1 or \
+                b["eager_call"]["ringbuf_emit_batch"] != 1:
+            fail(f"phase 14 (b): launches per exported call {per}, per "
+                 f"eager call {b['eager_call']}")
+    out = {"tapes": len(tapes), "events": n_ev,
+           "export_s": first["boot_s"], "load_ms": second["boot_s"] * 1e3,
+           "stored_bytes": first["bytes"],
+           "exported": second["times"]["exported"],
+           "eager": second["times"]["eager"],
+           "miss_worker_times": first["times"],
+           "launches_per_exported_call": first["per_call"][0]}
+    print(f"  (b) export {out['export_s']:.2f} s, load "
+          f"{out['load_ms']:.1f} ms, {out['stored_bytes']} bytes stored; "
+          f"per call: exported {out['exported']['device_us']:.0f} us device, "
+          f"{out['exported']['host_us']:.0f} us host; eager "
+          f"{out['eager']['device_us']:.0f} us device, "
+          f"{out['eager']['host_us']:.0f} us host", flush=True)
+
+    # the corrupted-artifact drill, on the card in this process
+    drill = os.path.join(tmp, "drill")
+    args0 = _stage_args(torch, *tapes[0][:3])
+    counters = []
+    for k in range(3):
+        rt = aot_runtime(cfg)
+        rt.enable_artifact_cache(drill)
+        ctx = (F.plan(F.FaultPlan(seed=0, rates={"corrupt_artifact": 1.0}))
+               if k == 0 else contextlib.nullcontext())
+        t0 = time.perf_counter()
+        with ctx:
+            step, hit = rt.aot_step(_stage_factory(rt), args0,
+                                    extra_key=AOT_KEY + (n_ev,))
+        boot = time.perf_counter() - t0
+        counters.append(dict(rt.artifact_cache.counters))
+        if hit != (k == 2):
+            fail(f"phase 14 (b) drill: boot {k} hit={hit}: {counters}")
+        bad = _maps_bad(step(*args0)[0], tapes[0][3])
+        if bad:
+            fail(f"phase 14 (b) drill: boot {k}: {bad} differ")
+        counters[-1]["boot_s"] = boot
+    if counters[1]["corrupt"] != 1 or counters[1]["stores"] != 1:
+        fail(f"phase 14 (b) drill: the corrupt entry was not dropped and "
+             f"stored again: {counters}")
+    out["drill"] = counters
+    print(f"  (b) corrupted entry detected, dropped and traced again: "
+          f"{counters[1]}", flush=True)
+
+    # a scan-lane stage cannot be exported: run eagerly, nothing stored
+    rt = aot_runtime(cfg)
+    cache = rt.enable_artifact_cache(os.path.join(tmp, "scan"))
+    step, hit = rt.aot_step(_stage_factory(rt, "scan"), args0,
+                            extra_key=AOT_KEY + (n_ev, "scan"))
+    if hit or cache.counters["unexportable"] != 1 or cache.ls():
+        fail(f"phase 14 (b): the scan-lane stage: hit={hit}, "
+             f"{cache.counters}, entries {cache.ls()}")
+    bad = _maps_bad(step(*args0)[0], tapes[0][3])
+    if bad:
+        fail(f"phase 14 (b): the scan-lane stage's {bad} differ")
+    out["scan"] = {"unexportable": cache.counters["unexportable"],
+                   "error": (rt.last_export_error or "")[:200]}
+    launches = {k: sum(c[k] for b in boots for c in b["per_call"])
+                for k in boots[0]["per_call"][0]}
+    del engine
+    return out, launches
+
+
+def hist_card_vs_cpu(torch, ops):
+    """(c): log2_histogram of a 64 Mi-element f32 tensor with zeros,
+    negatives, NaN, +-Inf, subnormals and values past 2**46 (whose Q47.16
+    value clips at 2**62), on the card against the CPU, bit for bit."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(HIST_N, generator=g, device="cuda") * torch.exp2(
+        torch.randint(-40, 80, (HIST_N,), generator=g, device="cuda")
+        .float())
+    specials = torch.tensor(
+        [0.0, -0.0, -1.0, float("nan"), float("inf"), -float("inf"),
+         1e-39, -1e-40, 2.0**-16, 2.0**46, 2.0**47, 2.0**62, 3.0e38],
+        device="cuda")
+    x[:specials.numel()] = specials
+    x[HIST_N // 2::4097] = float("nan")
+    got = ops.log2_histogram(x)
+    want = ops.log2_histogram(x.cpu())
+    if not torch.equal(got.cpu(), want):
+        fail(f"phase 14 (c): log2_histogram on the card {got.tolist()} != "
+             f"the CPU's {want.tolist()}")
+    ms = cuda_ms(torch, lambda: ops.log2_histogram(x), 20)
+    b_ms, b_by = bound_ms(4 * HIST_N + 8 * 64, 0)
+    out = {"numel": HIST_N, "device_ms": ms, "bound_ms": b_ms,
+           "bound_by": b_by, "total": int(got.sum()),
+           "bin0": int(got[0]), "bin63": int(got[63])}
+    print(f"  (c) log2_histogram of {HIST_N} f32 on the card: equal to the "
+          f"CPU's; {ms:.3f} ms (bound {b_ms:.3f} ms)", flush=True)
+    return out
+
+
+def phase14(torch, ops, cfg):
+    """(a), (b), (c); returns the results and the launches of (a) and
+    (b)'s exported calls."""
+    import shutil
+    out = {}
+    tmp = scratch_dir(8 << 30, "phase 14")
+    try:
+        out["twins"] = run_twins(torch, ops, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["aot"], aot_launches = aot_full_width(torch, ops, cfg, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["log2_histogram"] = hist_card_vs_cpu(torch, ops)
+    launches = {k: sum(r["launches"][k] for r in out["twins"])
+                + aot_launches[k] for k in aot_launches}
+    return out, launches
+
+
+
 def card_line() -> str:
     """The card's name and power limit as nvidia-smi prints them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4476,6 +4967,18 @@ def main(argv=None):
     fam_train["phase_s"] = time.perf_counter() - t13
     print(f"  phase 13 took {fam_train['phase_s']:.1f} s", flush=True)
 
+    # ---- phase 14
+    print("phase 14: the eight examples' twins on the card; qwen2-0.5b's "
+          "probe stage at full width booted through aot_step in two "
+          "workers, a corrupted entry and a scan-lane stage; "
+          "log2_histogram card vs CPU", flush=True)
+    t14 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples, p14 = phase14(torch, ops, cfg)
+    examples["phase_s"] = time.perf_counter() - t14
+    print(f"  phase 14 took {examples['phase_s']:.1f} s", flush=True)
+
     # ---- report
     def pick(rows_, key, val):
         return next(r for r in rows_ if r[key] == val)
@@ -4498,7 +5001,8 @@ def main(argv=None):
                 "phase9_launches": p9[name], "phase10_launches": p10[name],
                 "phase11_launches": p11[name],
                 "phase12_launches": p12[name],
-                "phase13_launches": p13[name], "shapes": shapes}
+                "phase13_launches": p13[name],
+                "phase14_launches": p14[name], "shapes": shapes}
 
     report = {"kernels": [
         entry("tensor_stats", "tensor_stats.cu",
@@ -4531,7 +5035,7 @@ def main(argv=None):
         "live": live,
         "train": train, "fleet": fleet, "aggregator": aggregator,
         "fuzz": fuzz, "families": families, "encdec_vlm": encvlm,
-        "family_training": fam_train,
+        "family_training": fam_train, "examples": examples,
         "train_launches_of_serving_kernels": {
             k: tl[k] for k in SERVING_KERNELS},
         "flash_sm90_build": sm90_build, "probe_build": probe_build}

@@ -1,12 +1,19 @@
-"""Fleet-wide artifact cache -- encode once, every worker reuses.
+"""Fleet-wide artifact cache -- build once, every worker reuses.
 
-The port's half of the JAX package's cache: encoded table-program images
-(`LiveTable.encode_slot(cache=...)`), content-addressed by
-`LiveTable.image_key`, so a daemon fanning one live attach out to N
-workers has the program encoded once and reused N-1 times. The JAX
-package also stores serialized XLA executables here (`put_step`,
-`get_step`, the runtime's `aot_step`); eager PyTorch builds no executable,
-so there is nothing of that kind to store and the port has neither.
+Two kinds of entry, content-addressed by keys the callers derive from
+what the artifact depends on:
+
+  * encoded table-program images (`LiveTable.encode_slot(cache=...)`,
+    keyed by `LiveTable.image_key`), so a daemon fanning one live attach
+    out to N workers has the program encoded once and reused N-1 times;
+  * exported steps (`put_step`/`get_step`, used by the runtime's
+    `aot_step`, keyed by its layout fingerprint): the `torch.export`
+    program of a step, saved with `torch.export.save`. The JAX package
+    stores a serialized XLA executable here; the port stores the traced
+    graph, which the next worker loads in milliseconds instead of tracing
+    the step again (seconds). It is no machine code: the loaded program
+    runs its operators eagerly, the probe kernels among them as the
+    `torch.ops.repro_torch` custom operators.
 
 Durability model (same discipline as the shm plane):
 
@@ -14,16 +21,17 @@ Durability model (same discipline as the shm plane):
     payload in a JSON meta sidecar -- readers can never observe a torn
     artifact;
   * reads verify the CRC; a mismatch DELETES the entry, bumps the
-    ``corrupt`` counter, and returns a miss -- the caller encodes again.
+    ``corrupt`` counter, and returns a miss -- the caller builds again.
     Corruption degrades to the cold path, it never crashes a worker and
-    never serves a torn image (chaos-drilled via the ``corrupt_artifact``
-    fault kind on the ``cache:post_store`` hook);
+    never serves a torn artifact (chaos-drilled via the
+    ``corrupt_artifact`` fault kind on the ``cache:post_store`` hook);
   * invalidation is purely key-derivation: any change to the key basis
     lands on a different key. Stale entries are garbage, not hazards --
     ``purge`` reclaims them.
 
-The files are the JAX package's: either package reads the other's
-entries.
+The files are the JAX package's: either package reads the other's table
+entries. A step entry of one package is a load error in the other, which
+degrades like corruption; their keys differ in any case.
 """
 from __future__ import annotations
 
@@ -33,10 +41,12 @@ import os
 import zlib
 
 import numpy as np
+import torch
 
 from . import faults
 
-COUNTER_KEYS = ("hits", "misses", "stores", "corrupt", "purged", "evicted")
+COUNTER_KEYS = ("hits", "misses", "stores", "corrupt", "purged", "evicted",
+                "unexportable")
 
 
 class ArtifactCache:
@@ -149,6 +159,38 @@ class ArtifactCache:
                 os.unlink(p)
             except OSError:
                 pass
+
+    # ------------------------------------------------------------ steps
+    def put_step(self, key: str, exported) -> bool:
+        """Store one `torch.export` program (`torch.export.save` bytes).
+        Returns False, counts ``unexportable`` and stores nothing when the
+        program cannot be saved -- callers just lose reuse, never
+        correctness."""
+        buf = io.BytesIO()
+        try:
+            torch.export.save(exported, buf)
+        except Exception:
+            self.counters["unexportable"] += 1
+            return False
+        self.put_bytes(key, buf.getvalue(), "step")
+        return True
+
+    def get_step(self, key: str):
+        """Load a stored program as a callable module, or None on a miss or
+        a corrupt entry."""
+        blob = self.get_bytes(key, kind="step")
+        if blob is None:
+            return None
+        from ..kernels import ops      # noqa: F401  registers the probe
+                                       # operators the program calls
+        try:
+            return torch.export.load(io.BytesIO(blob)).module()
+        except Exception:
+            # skew the CRC cannot see (another torch, a missing operator):
+            # the same degrade
+            self.counters["hits"] -= 1
+            self._drop_corrupt(key)
+            return None
 
     # ------------------------------------------------------------ table images
     def put_table(self, key: str, arrays: dict) -> None:

@@ -131,9 +131,13 @@ _POW2_T: dict = {}
 def pow2(device) -> torch.Tensor:
     """The 63 powers of two as an int64 tensor on `device` (cached)."""
     key = torch.device(device)
-    if key not in _POW2_T:
-        _POW2_T[key] = torch.as_tensor(_POW2, device=key)
-    return _POW2_T[key]
+    t = _POW2_T.get(key)
+    if t is None:
+        t = torch.as_tensor(_POW2, device=key)
+        # under torch.export this is a traced tensor, no constant to keep
+        if not torch.compiler.is_exporting():
+            _POW2_T[key] = t
+    return t
 
 
 def log2_bin(v):

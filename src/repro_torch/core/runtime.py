@@ -105,6 +105,17 @@ class LoadedProg:
     vabs: VerifiedProgram | None = None
 
 
+class _Step(torch.nn.Module):
+    """A step function as the module `torch.export` traces."""
+
+    def __init__(self, fn):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(*args)
+
+
 @dataclass(eq=False)
 class Link:
     """Handle for one attachment, whatever lane it executes on.
@@ -175,6 +186,7 @@ class BpftimeRuntime:
         # (enable_artifact_cache / core/artifact_cache.py); setup_shm
         # auto-joins <root>/cache
         self.artifact_cache = None
+        self.last_export_error = None     # why aot_step ran a step eagerly
 
     # ---------------------------------------------------------------- maps
     def create_map(self, spec: MapSpec) -> int:
@@ -527,14 +539,51 @@ class BpftimeRuntime:
                                     table_dims=dims, attach_sig=attach_sig,
                                     extra=extra)
 
+    def step_key(self, extra_key: tuple, device_type: str) -> str:
+        """The cache key of a step exported by `aot_step`: the layout
+        fingerprint with the caller's facts, the device type the program
+        was traced on and this torch's version, so a program traced on the
+        CPU is never served to a card worker, nor one of another torch."""
+        return self.layout_fingerprint(extra=(
+            *extra_key, "torch.export", device_type, torch.__version__))
+
     def aot_step(self, build_fn, example_args, extra_key: tuple = ()):
-        """The JAX package's cold-join path reuses another worker's compiled
-        XLA executable. Eager PyTorch compiles no executable, so there is
-        nothing to store or reuse; a torch.compile or CUDA-graph counterpart
-        would come with ROADMAP A14."""
-        raise NotImplementedError(
-            "aot_step: eager PyTorch builds no executable to cache; a "
-            "compiled-step counterpart would come with ROADMAP A14")
+        """Consult-or-export-and-store: the worker cold-join fast path.
+
+        Returns ``(step, hit)``. On a warm cache the stored `torch.export`
+        program loads in milliseconds (`ArtifactCache.get_step`); on a miss
+        (or with no cache enabled) ``build_fn()`` is traced by
+        ``torch.export.export(..., strict=False)`` over ``example_args``
+        (tensors or trees of them: the program is specialised to their
+        shapes and dtypes) and the program is stored for the next joiner.
+        ``extra_key`` folds caller facts the trace also depends on (e.g.
+        batch geometry) into the key.
+
+        A step that cannot be traced -- the scan lanes read the tape on the
+        host, the live lane's table interpreter is a ctypes launch -- comes
+        back as ``(build_fn(), False)``: nothing is stored, the cache counts
+        ``unexportable`` and `last_export_error` says why."""
+        leaves = [t for t in torch.utils._pytree.tree_leaves(example_args)
+                  if isinstance(t, torch.Tensor)]
+        key = self.step_key(tuple(extra_key),
+                            leaves[0].device.type if leaves else "cpu")
+        cache = self.artifact_cache
+        if cache is not None:
+            step = cache.get_step(key)
+            if step is not None:
+                return step, True
+        fn = build_fn()
+        try:
+            exported = torch.export.export(_Step(fn), tuple(example_args),
+                                           strict=False)
+        except Exception as e:      # any trace failure: run it eagerly
+            self.last_export_error = f"{type(e).__name__}: {e}"
+            if cache is not None:
+                cache.counters["unexportable"] += 1
+            return fn, False
+        if cache is not None:
+            cache.put_step(key, exported)
+        return exported.module(), False
 
     # ---------------------------------------------------------------- promote
     def enable_promotion(self, step_builder, example_args,

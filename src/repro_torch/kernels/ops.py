@@ -3,6 +3,15 @@
 A CUDA tensor goes to the Hopper kernel; a CPU tensor to the plain PyTorch
 version in `ref.py`. Any other device raises. There is no switch and no
 fallback: a CUDA tensor launches its kernel or raises.
+
+The three probe kernels are also custom operators,
+`torch.ops.repro_torch.{hash_fetch_add_batch, ringbuf_emit_batch,
+tensor_stats_row}`: the CUDA implementation is the kernel's launch, the CPU
+one its plain version, and a fake implementation gives the output shapes,
+so `torch.export` can trace a step through them (`core/runtime.aot_step`)
+and the exported program launches the same kernels. An eager call skips
+the dispatcher, which costs a host-bound step more than the launch
+(PERF.md); the operators are taken only while exporting.
 """
 from __future__ import annotations
 
@@ -34,16 +43,14 @@ def tensor_stats(x) -> dict:
     return ref.tensor_stats(x)
 
 
-def tensor_stats_row(x, site_id: int, kind: int, layer: int):
-    """The collector's i64[16] event row of `x`: one kernel launch for a
-    CUDA tensor, `ref.tensor_stats_row` for a CPU tensor."""
+def _tensor_stats_row(x, site_id: int, kind: int, layer: int):
     if on_card(x, "tensor_stats"):
         return ts.tensor_stats_row_cuda(_kernel_input(x), site_id, kind,
                                         layer)
     return ref.tensor_stats_row(x, site_id, kind, layer)
 
 
-def hash_fetch_add_batch(keys_tbl, used_tbl, vals_tbl, keys, deltas, valid):
+def _hash_fetch_add_batch(keys_tbl, used_tbl, vals_tbl, keys, deltas, valid):
     if on_card(keys_tbl, "hash_fetch_add_batch"):
         return hash_update.hash_fetch_add_batch_cuda(
             keys_tbl, used_tbl, vals_tbl, keys.contiguous(),
@@ -52,13 +59,92 @@ def hash_fetch_add_batch(keys_tbl, used_tbl, vals_tbl, keys, deltas, valid):
                                     deltas, valid)
 
 
-def ringbuf_emit_batch(data, head, dropped, rows, valid):
-    """The RINGBUF apply: (data, head, dropped) after appending the valid
-    rows, in one kernel launch for a CUDA ring."""
+def _ringbuf_emit_batch(data, head, dropped, rows, valid):
     if on_card(data, "ringbuf_emit_batch"):
         return ringbuf_emit.ringbuf_emit_batch_cuda(
             data, head, dropped, rows.contiguous(), valid.contiguous())
     return ref.ringbuf_emit_batch(data, head, dropped, rows, valid)
+
+
+# ---- the custom operators: the same functions behind the dispatcher
+Tensor = torch.Tensor
+
+
+@torch.library.custom_op("repro_torch::tensor_stats_row", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _tensor_stats_row_op(x: Tensor, site_id: int, kind: int,
+                         layer: int) -> Tensor:
+    return _tensor_stats_row(x, site_id, kind, layer)
+
+
+@_tensor_stats_row_op.register_fake
+def _(x, site_id, kind, layer):
+    return x.new_empty(ref.EVENT_WIDTH, dtype=torch.int64)
+
+
+@torch.library.custom_op("repro_torch::hash_fetch_add_batch",
+                         mutates_args=(), device_types=("cpu", "cuda"))
+def _hash_fetch_add_batch_op(keys_tbl: Tensor, used_tbl: Tensor,
+                             vals_tbl: Tensor, keys: Tensor, deltas: Tensor,
+                             valid: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    return tuple(_hash_fetch_add_batch(keys_tbl, used_tbl, vals_tbl, keys,
+                                       deltas, valid))
+
+
+@_hash_fetch_add_batch_op.register_fake
+def _(keys_tbl, used_tbl, vals_tbl, keys, deltas, valid):
+    return (torch.empty_like(keys_tbl), torch.empty_like(used_tbl),
+            torch.empty_like(vals_tbl))
+
+
+@torch.library.custom_op("repro_torch::ringbuf_emit_batch", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _ringbuf_emit_batch_op(data: Tensor, head: Tensor, dropped: Tensor,
+                           rows: Tensor, valid: Tensor
+                           ) -> tuple[Tensor, Tensor, Tensor]:
+    return tuple(_ringbuf_emit_batch(data, head, dropped, rows, valid))
+
+
+@_ringbuf_emit_batch_op.register_fake
+def _(data, head, dropped, rows, valid):
+    return (torch.empty_like(data), torch.empty_like(head),
+            torch.empty_like(dropped))
+
+
+_exporting = torch.compiler.is_exporting
+
+
+def tensor_stats_row(x, site_id: int, kind: int, layer: int):
+    """The collector's i64[16] event row of `x`: one kernel launch for a
+    CUDA tensor, `ref.tensor_stats_row` for a CPU tensor."""
+    if _exporting():
+        return torch.ops.repro_torch.tensor_stats_row(x, site_id, kind,
+                                                      layer)
+    return _tensor_stats_row(x, site_id, kind, layer)
+
+
+def hash_fetch_add_batch(keys_tbl, used_tbl, vals_tbl, keys, deltas, valid):
+    if _exporting():
+        return torch.ops.repro_torch.hash_fetch_add_batch(
+            keys_tbl, used_tbl, vals_tbl, keys, deltas, valid)
+    return _hash_fetch_add_batch(keys_tbl, used_tbl, vals_tbl, keys, deltas,
+                                 valid)
+
+
+def ringbuf_emit_batch(data, head, dropped, rows, valid):
+    """The RINGBUF apply: (data, head, dropped) after appending the valid
+    rows, in one kernel launch for a CUDA ring."""
+    if _exporting():
+        return torch.ops.repro_torch.ringbuf_emit_batch(data, head, dropped,
+                                                        rows, valid)
+    return _ringbuf_emit_batch(data, head, dropped, rows, valid)
+
+
+def log2_histogram(x, n_bins: int = 64):
+    """bcc-style log2 histogram of |x| in Q47.16, i64[n_bins]. Plain
+    PyTorch on any device: the JAX package has no Pallas kernel for it
+    either."""
+    return ref.log2_histogram(x, n_bins)
 
 
 def table_interp_run(spec_key, table, rows, maps, aux, *,

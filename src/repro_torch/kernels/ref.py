@@ -83,6 +83,24 @@ def tensor_stats_row(x, site_id: int, kind: int, layer: int):
                                   device=x.device)])
 
 
+def log2_histogram(x, n_bins: int = 64):
+    """bcc-style log2 histogram of |x| in Q47.16 fixed point, i64[n_bins]:
+    bin 0 for a zero fixed-point value, else min(n_bins - 1, the count of
+    powers 2**k <= v for k < 63), i.e. v's bit length. The steps are the
+    JAX package's: |x| in f32 with non-finite values as 0, the clip to
+    [0, 2**62] in f32 before the cast. The count is a binary search over
+    the 63 powers, so no [numel, 63] comparison is materialised."""
+    v = torch.as_tensor(x).to(F32).reshape(-1).abs()
+    v = torch.where(torch.isfinite(v), v, torch.zeros_like(v))
+    fx = (v * float(FX_ONE)).clamp(0.0, float(2**62)).to(I64)
+    pow2 = torch.tensor([1 << k for k in range(63)], dtype=I64,
+                        device=fx.device)
+    count = torch.searchsorted(pow2, fx, right=True)
+    bins = torch.where(fx <= 0, torch.zeros_like(count),
+                       count.clamp(max=n_bins - 1))
+    return torch.bincount(bins, minlength=n_bins)
+
+
 # --------------------------------------------------------------------------
 # hash_fetch_add_batch: sequential batched open-addressing fetch-add
 # --------------------------------------------------------------------------

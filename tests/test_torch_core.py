@@ -731,10 +731,11 @@ def test_to_fx_saturates_and_zeroes_nan():
 # ------------------------------------------------------------- import guard
 
 def test_port_imports_neither_jax_nor_repro():
-    """Every repro_torch module imports in a process where `jax` and
-    `repro` cannot be imported."""
+    """Every repro_torch module, and every example twin under
+    examples/torch/, imports in a process where `jax` and `repro` cannot
+    be imported."""
     code = """
-import importlib, pkgutil, sys
+import importlib, importlib.util, pathlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["repro"] = None
 import repro_torch
@@ -765,11 +766,20 @@ assert aggregator <= set(names), aggregator - set(names)
 families = {"repro_torch.models.moe", "repro_torch.models.ssm",
             "repro_torch.models.encdec"}
 assert families <= set(names), families - set(names)
-print(len(names))
+twins = sorted(pathlib.Path(sys.argv[1]).glob("*.py"))
+assert len(twins) == 8, twins
+for path in twins:                 # each twin imports the port alone
+    spec = importlib.util.spec_from_file_location(f"twin_{path.stem}", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+       or m == "repro" or m.startswith("repro.")]
+assert not [m for m in bad if sys.modules[m] is not None], bad
+print(len(names) + len(twins))
 """
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.join(ROOT, "src")
-    out = subprocess.run([sys.executable, "-c", code], env=env,
+    out = subprocess.run([sys.executable, "-c", code,
+                          os.path.join(ROOT, "examples", "torch")], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 75
+    assert int(out.stdout.strip()) >= 83

@@ -872,3 +872,58 @@ def test_kimi_k8_apply_moe_on_the_card_equals_the_cpu(cuda):
     print(f"kimi-k2 k=8 apply_moe on the card: two runs differ by at most "
           f"{float((runs[0] - runs[1]).abs().max()):.3e}; card vs CPU "
           f"{max(float((r - want).abs().max()) for r in runs):.3e}")
+
+
+# ---- the probe kernels as custom operators (the route of an exported
+# step) at phase 3's shapes, and log2_histogram, card against the plain
+# versions and the CPU
+
+@pytest.mark.parametrize("name", ["tensor_stats_row", "hash_fetch_add_batch",
+                                  "ringbuf_emit_batch"])
+def test_custom_op_launches_the_kernel(cuda, name):
+    rng = np.random.default_rng(5)
+    if name == "tensor_stats_row":
+        x = torch.from_numpy(rng.standard_normal((4, 1, 896)).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+        args, plain = (x, 3, 1, 17), TREF.tensor_stats_row
+    elif name == "hash_fetch_add_batch":
+        st = M.init_state_np(M.MapSpec("t", M.MapKind.HASH, 256))
+        for k in rng.integers(0, 1 << 40, 100):
+            M.n_hash_update(st, int(k), 1)
+        keys = np.concatenate([st["keys"][st["used"] == 1][:30],
+                               rng.integers(0, 1 << 40, 19)])
+        args = tuple(torch.as_tensor(a, device=cuda) for a in (
+            st["keys"], st["used"], st["values"], keys,
+            rng.integers(-9, 9, 49), rng.random(49) < 0.9))
+        plain = TREF.hash_fetch_add_batch
+    else:
+        args = tuple(torch.as_tensor(a, device=cuda) for a in (
+            rng.integers(0, 9, (64, 4)), np.array([70]), np.array([1]),
+            rng.integers(0, 1 << 40, (49, 4)), rng.random(49) < 0.7))
+        plain = TREF.ringbuf_emit_batch
+    kernel = "tensor_stats" if name == "tensor_stats_row" else name
+    before = ops.launch_counts()[kernel]
+    got = getattr(torch.ops.repro_torch, name)(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[kernel] == before + 1
+    want = plain(*args)
+    if name == "tensor_stats_row":
+        assert torch.equal(got[:5], want[:5])
+        assert torch.equal(got[10:], want[10:])
+        torch.testing.assert_close(got[5:10].double(), want[5:10].double(),
+                                   rtol=TOL, atol=TOL * 65536)
+    else:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_log2_histogram_card_equals_cpu(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(1 << 22, generator=g, device=cuda) * torch.exp2(
+        torch.randint(-40, 80, (1 << 22,), generator=g, device=cuda).float())
+    x[:8] = torch.tensor([0.0, -1.0, float("nan"), float("inf"),
+                          -float("inf"), 1e-40, 2.0**47, 3e38])
+    for n_bins in (64, 16, 1):
+        got = ops.log2_histogram(x, n_bins)
+        assert got.is_cuda
+        assert torch.equal(got.cpu(), ops.log2_histogram(x.cpu(), n_bins))

@@ -434,7 +434,8 @@ def test_status_json_has_jax_keys(tmp_path):
     for k in ("worker_id", "attach_epoch", "live_gen", "live_slots",
               "links", "promotions"):
         assert ts[k] == js[k], k
-    assert set(ts["cache"]) == set(js["cache"])
+    # the port also counts steps it could not export (aot_step)
+    assert set(ts["cache"]) == set(js["cache"]) | {"unexportable"}
     assert ts["cache"]["stores"] == js["cache"]["stores"] == 1
 
 
@@ -449,6 +450,11 @@ def test_bad_request_is_reported_not_raised(tmp_path):
 
 # ---------------------------------------------------------- artifact cache
 
+class _Double(torch.nn.Module):
+    def forward(self, x):
+        return x * 2 + 1
+
+
 def test_bytes_round_trip_and_counters(tmp_path):
     c = ArtifactCache(str(tmp_path))
     assert c.get_bytes("k1") is None
@@ -456,10 +462,19 @@ def test_bytes_round_trip_and_counters(tmp_path):
     c.put_bytes("k1", b"payload", "table")
     assert c.get_bytes("k1") == b"payload"
     assert c.get_bytes("k1", kind="step") is None     # kind mismatch drops
-    assert c.counters == {"hits": 1, "misses": 1, "stores": 1,
-                          "corrupt": 1, "purged": 0, "evicted": 0}
+    table = {"hits": 1, "misses": 1, "stores": 1, "corrupt": 1, "purged": 0,
+             "evicted": 0, "unexportable": 0}
+    assert c.counters == table
     assert c.get_bytes("k1") is None
-    assert not hasattr(c, "put_step") and not hasattr(c, "get_step")
+    table["misses"] += 1
+    # an exported step round-trips beside the table entries: one store and
+    # one hit of its own, the other counters unchanged
+    ep = torch.export.export(_Double(), (torch.arange(4),))
+    assert c.put_step("s1", ep)
+    got = c.get_step("s1")
+    assert torch.equal(got(torch.arange(4)), torch.arange(4) * 2 + 1)
+    assert c.counters == {**table, "stores": 2, "hits": 2}
+    assert [r["kind"] for r in c.ls()] == ["step"]
 
 
 def test_table_image_round_trip(tmp_path):

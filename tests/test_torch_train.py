@@ -511,10 +511,8 @@ def test_run_training_on_cpu_loss_decreases(capsys):
 
 
 def test_run_training_asks_for_cuda_and_refuses_later_slices():
-    # shm, the artifact cache, checkpoints and int8 compression are ported;
-    # a cached compiled step and elastic restore wait for ROADMAP A14
-    with pytest.raises(NotImplementedError, match="A14"):
-        TRuntime().aot_step(lambda: None, ())
+    # shm, the artifact cache, a cached exported step, checkpoints and int8
+    # compression are ported; elastic restore waits for ROADMAP A14
     from repro_torch.ckpt import checkpoint as CK
     with pytest.raises(NotImplementedError, match="A14"):
         CK.restore("x", 1, {}, shardings={})
