@@ -122,7 +122,7 @@ Phases:
      folded by a tree of fan-in 8 on the card, the same tree with the
      numpy twins and the flat Aggregator: all three views bit for bit
      equal; median ms per node, root and flat cycle. (c) the port's fuzz
-     harness over seeds 0-99 and more within 30 s, every lane on the
+     harness over seeds 0-99 and more within 8 s, every lane on the
      card, and every tests/corpus case: no mismatch; cases, lanes by
      kind, interpreter launches, seconds;
  11. the MoE, SSM and hybrid families, each model freed before the next:
@@ -220,6 +220,23 @@ Phases:
      again, hit) and a scan-lane stage (run eagerly, unexportable 1,
      nothing stored). (c) log2_histogram of 64 Mi f32 with the special
      values, card against CPU bit for bit, and its device ms.
+ 15. distribution and tooling, with what phases 9 and 11 already hold (no
+     model is built twice): (a) inside phase 11 (a), llama4-scout at full
+     width (4 of 48 layers) under use_mesh(make_host_mesh((1, 1))), NCCL
+     at world size 1, with REPRO_MOE_EP=1: a probed prefill and 8 probed
+     decode steps (MOE_PROBES) and one 4096-token prefill at batch 1 (the
+     flash forward at (40, 8, 4096, 128) causal), logits and every map
+     state bit for bit the same steps with the switch off, one expert
+     gather per MoE layer per step counted, ms per decode step and per
+     prefill with the switch on and off; (b) inside phase 9 (c), step_1
+     of qwen2-0.5b restored again onto a (1, 1) mesh with shardings from
+     spec_for over the state tree: every leaf's full_tensor() bit for bit
+     the plain restore, seconds for both; (c) the dry run of qwen2-0.5b x
+     train_4k single-pod with --probes --probe-mode fused, in a
+     subprocess with CUDA_VISIBLE_DEVICES="" started before phase 13 and
+     read here: its roofline terms,
+     dominant term and trace_s beside phase 7's measured step per 4096-
+     token sequence (the dry run's per-card shape).
 
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}. Any failure exits
@@ -2295,6 +2312,7 @@ def ckpt_train(torch, cfg, tmp, seq=4096, batch=4, microbatch=2,
     restored = CK.restore(ck, 1, fresh, device=device)
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t0
+    elastic = elastic_restore(torch, ck, fresh, restored, restore_s, device)
     del fresh
     data = SyntheticDataset(cfg, ShapeConfig("ckpt", seq, batch, "train"),
                             tcfg)
@@ -2325,7 +2343,8 @@ def ckpt_train(torch, cfg, tmp, seq=4096, batch=4, microbatch=2,
           "final state's", flush=True)
     return {"gb_per_checkpoint": gb, "save_s": save_s,
             "restore_s": restore_s, "leaves": len(names),
-            "not_bitwise": diff, "losses": [h["loss"] for h in hist]}
+            "not_bitwise": diff, "losses": [h["loss"] for h in hist],
+            "phase15": elastic}
 
 
 # --------------------------------------------------------------------------
@@ -2812,7 +2831,7 @@ def fleet_scale(tmp, device="cuda", n_workers=64, fan_in=8, rounds=7,
             "flat_events_per_s": per_round / (med["flat"] / 1e3)}
 
 
-def fuzz_on_card(ops, device="cuda", seeds=100, budget_s=30.0):
+def fuzz_on_card(ops, device="cuda", seeds=100, budget_s=8.0):
     """(c): the port's fuzz harness over seeds 0-99 (and more seeds while
     less than `budget_s` has passed) at 6 events, every lane on `device`,
     and every corpus case."""
@@ -2862,6 +2881,9 @@ JAMBA = "jamba-v0.1-52b"
 LLAMA4_LAYERS = 4
 ROUTE_TOKENS = 4096
 LONG_PREFILL = 4096
+# phase 15 (a): llama4-scout's expert-parallel decode, 4 prompts of 16
+# tokens then 8 probed decode steps, each switch setting timed twice
+EP_BATCH, EP_PROMPT, EP_STEPS = 4, 16, 8
 # smoke width card vs CPU (f32, TF32 off): logits as phase 3's
 FAMILY_LOGIT_TOL = 1e-4
 
@@ -3040,6 +3062,7 @@ def llama4_full(torch, ops, registry):
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print(f"  (a) peak memory {out['peak_gb']:.1f} GB", flush=True)
     out["params_b"] = n / 1e9
+    out["phase15"] = ep_on_card(torch, ops, cfg, params)
     return out
 
 
@@ -4627,6 +4650,306 @@ def phase14(torch, ops, cfg):
 
 
 
+# --------------------------------------------------------------------------
+# phase 15: expert parallelism, elastic restore, the dry run
+# --------------------------------------------------------------------------
+
+def ep_on_card(torch, ops, cfg, params):
+    """Phase 15 (a), inside phase 11 (a): the expert-parallel path of
+    `cfg` (llama4-scout at full width) on a (1, 1) mesh, NCCL at world
+    size 1, against the same steps with REPRO_MOE_EP off. The kernel
+    counts are set to 0 just before the switch-on run and read just
+    after it."""
+    import os
+    import numpy as np
+    from repro_torch.core.runtime import BpftimeRuntime, to_numpy
+    from repro_torch.dist import expert_parallel as EP, sharding as SH
+    from repro_torch.launch import serve as L
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry as MR
+    from repro_torch.serve.steps import make_decode_step, make_prefill_step
+    print("  phase 15 (a): llama4-scout's experts behind the mesh's 'model' "
+          "axis (REPRO_MOE_EP=1, NCCL at world size 1)", flush=True)
+    t_start = time.perf_counter()
+    mesh = make_host_mesh((1, 1), device="cuda")
+    n_moe = layers_of(cfg, lambda j: cfg.ffn_kind(j) == "moe")
+    rng = np.random.default_rng(SEED)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                           (EP_BATCH, EP_PROMPT)),
+                              device="cuda")
+    long_toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                             (1, LONG_PREFILL)),
+                                device="cuda")
+
+    def switch(on):
+        os.environ["REPRO_MOE_EP"] = "1" if on else "0"
+
+    def decode_run(on, keep):
+        """A probed prefill then EP_STEPS probed decode steps: per step
+        the logits, the maps (keep) and the host ms, and the gathers."""
+        rt = BpftimeRuntime()
+        L.attach_serve_probes(rt, L.family_probes(cfg))
+        prefill = make_prefill_step(cfg, rt)
+        decode = make_decode_step(cfg, rt, probe_mode="fused")
+        maps = rt.init_device_maps("cuda")
+        cache = MR.make_cache(cfg, EP_BATCH, EP_PROMPT + EP_STEPS + 1,
+                              torch.float32, "cuda")
+        switch(on)
+        logits_all, maps_all, ms, gathers = [], [], [], []
+        with SH.use_mesh(mesh):
+            logits, cache, maps = prefill(params, {"tokens": prompts},
+                                          cache, maps)
+            tok = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
+            for i in range(EP_STEPS):
+                g0 = EP.GATHERS
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                nxt, logits, cache, maps = decode(params, tok, cache, maps,
+                                                  i + 1)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                gathers.append(EP.GATHERS - g0)
+                tok = nxt[:, None].to(torch.int64)
+                if keep:
+                    logits_all.append(logits.clone())
+                    maps_all.append(to_numpy(maps))
+        switch(False)
+        return logits_all, maps_all, ms, gathers
+
+    def long_run(on):
+        switch(on)
+        g0 = EP.GATHERS
+        with SH.use_mesh(mesh):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = MR.prefill_fn(params, {"tokens": long_toks},
+                                   MR.make_cache(cfg, 1, LONG_PREFILL,
+                                                 torch.float32, "cuda"),
+                                   cfg)[0]
+            torch.cuda.synchronize()
+        switch(False)
+        return logits, (time.perf_counter() - t0) * 1e3, EP.GATHERS - g0
+
+    try:
+        off = decode_run(False, True)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        on = decode_run(True, True)
+        long_on, long_on_ms, long_gathers = long_run(True)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        long_off, long_off_ms, _ = long_run(False)
+        # logits and maps, bit for bit
+        for i, (a, b) in enumerate(zip(on[0], off[0])):
+            if not _leaf_bits_equal(torch, a, b):
+                fail(f"phase 15 (a): decode step {i + 1}'s logits differ "
+                     "with REPRO_MOE_EP=1")
+        for i, (a, b) in enumerate(zip(on[1], off[1])):
+            bad = [f"{m}.{f}" for m, st in b.items() for f, x in st.items()
+                   if not np.array_equal(a[m][f], x)]
+            if bad:
+                fail(f"phase 15 (a): after decode step {i + 1} the maps "
+                     f"{bad[:4]} differ with REPRO_MOE_EP=1")
+        if not _leaf_bits_equal(torch, long_on, long_off):
+            fail(f"phase 15 (a): the {LONG_PREFILL}-token prefill's logits "
+                 "differ with REPRO_MOE_EP=1")
+        del long_on, long_off
+        if on[3] != [n_moe] * EP_STEPS or long_gathers != n_moe or \
+                any(off[3]):
+            fail(f"phase 15 (a): expert gathers per step {on[3]} (prefill "
+                 f"{long_gathers}, switch off {off[3]}), not one per MoE "
+                 f"layer ({n_moe})")
+        if any(launches[k] == 0 for k in SERVING_KERNELS) or \
+                launches["flash_fwd"] != attention_layers(cfg):
+            fail(f"phase 15 (a): kernels {launches}: every serving kernel, "
+                 f"and the flash forward once per attention layer in the "
+                 f"{LONG_PREFILL}-token prefill")
+        events = EP_STEPS * events_per_step(cfg)
+        if launches["tensor_stats"] < events:
+            fail(f"phase 15 (a): tensor_stats launched "
+                 f"{launches['tensor_stats']} times for at least {events} "
+                 "decode events")
+        # the collective on the card: one profiled switch-on decode step
+        nccl = _nccl_ops(torch, lambda: decode_run(True, False))
+        # timed passes in turns: off, on, on, off
+        timed = {"on": [], "off": []}
+        for flag in (False, True, True, False):
+            timed["on" if flag else "off"].append(decode_run(flag, False)[2])
+        prefill_ms = {"on": [long_on_ms], "off": [long_off_ms]}
+        for flag in (True, False):
+            prefill_ms["on" if flag else "off"].append(long_run(flag)[1])
+    finally:
+        switch(False)
+    med = {k: sorted(x for run in v for x in run[1:])[
+        len(v) * (EP_STEPS - 1) // 2] for k, v in timed.items()}
+    out = {"moe_layers": n_moe, "gathers_per_step": on[3],
+           "gathers_long_prefill": long_gathers, "launches": launches,
+           "nccl_device_ops_one_step": nccl, "decode_ms": timed,
+           "decode_ms_median": med, "prefill_ms": prefill_ms,
+           "s": time.perf_counter() - t_start}
+    print(f"  (a) {EP_STEPS} probed decode steps and a {LONG_PREFILL}-token "
+          f"prefill: logits and maps bit for bit the switch-off steps; "
+          f"{n_moe} expert gathers a step ({on[3]}), {long_gathers} in the "
+          f"prefill; profiled step's NCCL device operations {nccl}; "
+          f"kernels {json.dumps(launches)}", flush=True)
+    print(f"  (a) ms per decode step (median, steps 2-{EP_STEPS} of two "
+          f"passes each): on {med['on']:.2f}, off {med['off']:.2f}; "
+          f"{LONG_PREFILL}-token prefill on "
+          f"{', '.join(f'{m:.1f}' for m in prefill_ms['on'])}, off "
+          f"{', '.join(f'{m:.1f}' for m in prefill_ms['off'])} ms; "
+          f"(a) took {out['s']:.1f} s", flush=True)
+    return out
+
+
+def _nccl_ops(torch, fn) -> dict:
+    """Device operations named like NCCL's kernels, or copies, in one
+    profiled call of fn (world size 1: NCCL may copy instead of launching
+    a kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if _is_device(e) and ("nccl" in e.key.lower() or
+                              "allgather" in e.key.lower()):
+            out[e.key] = e.count
+    return out
+
+
+def _same_on_device(torch, a, b) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        a, b = a.view(view), b.view(view)
+    return torch.equal(a, b)
+
+
+def elastic_restore(torch, ck, like, plain, plain_s, device="cuda"):
+    """Phase 15 (b), inside phase 9 (c): step_1 restored again onto a
+    (1, 1) mesh (NCCL at world size 1 on the card) with shardings from
+    spec_for over the state tree; every leaf's full_tensor() held bit for
+    bit against the plain restore."""
+    from repro_torch.ckpt import checkpoint as CK
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import state_shardings
+    from repro_torch.optim import tree_leaves
+    import torch.distributed.tensor as DT
+    t_start = time.perf_counter()
+    mesh = make_host_mesh((1, 1), device=device)
+    shardings = state_shardings(like, mesh)
+    place, spent = DT.distribute_tensor, []
+
+    def timed_place(*a, **kw):              # the placing, apart from reads
+        t = time.perf_counter()
+        out = place(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+        return out
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    DT.distribute_tensor = timed_place
+    try:
+        placed = CK.restore(ck, 1, like, mesh=mesh, shardings=shardings)
+    finally:
+        DT.distribute_tensor = place
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    leaves = tree_leaves(placed)
+    sharded = sum(any(p.is_shard() for p in t.placements) for t in leaves)
+    bad = [i for i, (a, b) in enumerate(zip(leaves, tree_leaves(plain)))
+           if not _same_on_device(torch, a.full_tensor(), b)]
+    if bad or len(leaves) != len(tree_leaves(plain)):
+        fail(f"phase 15 (b): the elastic restore differs from the plain "
+             f"one in leaves {bad[:8]}")
+    del placed, leaves
+    out = {"restore_s": s, "plain_restore_s": plain_s,
+           "distribute_s": sum(spent), "first_distribute_s": spent[0],
+           "leaves": len(tree_leaves(plain)), "sharded_leaves": sharded,
+           "s": time.perf_counter() - t_start}
+    print(f"  phase 15 (b): step_1 restored onto a (1, 1) mesh "
+          f"({out['leaves']} leaves, {sharded} with a Shard placement) in "
+          f"{s:.2f} s (plain restore {plain_s:.2f} s), distribute_tensor "
+          f"{sum(spent):.2f} s of it (the first leaf {spent[0]:.2f} s): "
+          "every full_tensor() bit for bit the plain restore", flush=True)
+    return out
+
+
+DRYRUN_CELL = ("qwen2-0.5b", "train_4k")
+
+
+def dryrun_start(tmp):
+    """Phase 15 (c), started before phase 13 (device-bound training
+    leaves the host's cores free) and read in phase 15: one dry-run cell
+    in a subprocess that sees no card. Returns (process, start time)."""
+    import atexit
+    import os
+    arch, shape = DRYRUN_CELL
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None; "
+            "from repro_torch.launch import dryrun; dryrun.main(sys.argv[1:])")
+    proc = subprocess.Popen([sys.executable, "-c", code, "--arch", arch,
+                             "--shape", shape, "--probes", "--probe-mode",
+                             "fused", "--out", tmp], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=tmp)
+    atexit.register(proc.kill)          # a failed phase leaves no process
+    return proc, time.perf_counter()
+
+
+def dryrun_cell(started, tmp, phase7) -> dict:
+    """Phase 15 (c): the dry run's cell read back; its roofline beside
+    phase 7's measured step per 4096-token sequence (train_4k's 256
+    sequences over 256 cards: one a card)."""
+    import os
+    arch, shape = DRYRUN_CELL
+    proc, t_start = started
+    t0 = time.perf_counter()
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail("phase 15 (c): the dry run did not finish in 300 s")
+    waited = time.perf_counter() - t0
+    path = os.path.join(tmp, f"{arch}__{shape}__sp__probes.json")
+    if proc.returncode != 0 or not os.path.exists(path):
+        fail(f"phase 15 (c): the dry run failed: {stdout[-1500:]} "
+             f"{stderr[-1500:]}")
+    with open(path) as f:
+        d = json.load(f)
+    if "error" in d:
+        fail(f"phase 15 (c): the dry run wrote an error: {d['error']}")
+    rf = d["roofline"]
+    step_s = phase7["tokens_per_step"] / phase7["tokens_per_s_warm"]
+    per_seq = step_s * 4096 / phase7["tokens_per_step"]
+    out = {"arch": arch, "shape": shape, "mesh": d["mesh"],
+           "trace_s": d["trace_s"], "total_s": d["total_s"],
+           "ops": d["ops"], "roofline": rf,
+           "roofline_unfused_attention": d["roofline_unfused_attention"],
+           "collectives": d["collectives"],
+           "phase7_step_s": step_s, "phase7_s_per_sequence": per_seq,
+           "since_start_s": time.perf_counter() - t_start,
+           "waited_s": waited}
+    print(f"  phase 15 (c): dry run {arch} x {shape} on a "
+          f"{'x'.join(map(str, d['mesh']))} mesh, no card visible: "
+          f"{d['ops']} operations traced in {d['trace_s']} s; per card "
+          f"compute {rf['compute_s']:.4f} s, memory {rf['memory_s']:.4f} s, "
+          f"collective {rf['collective_s']:.4f} s, dominant "
+          f"{rf['dominant']}, roofline fraction "
+          f"{rf['roofline_fraction']:.3f}; phase 7's measured step "
+          f"{step_s:.3f} s for {phase7['tokens_per_step']} tokens = "
+          f"{per_seq:.3f} s per 4096-token sequence ("
+          f"{per_seq / max(rf['compute_s'], rf['memory_s'], rf['collective_s']):.1f}x "
+          f"the bound); {d['total_s']} s in its process, started "
+          f"{out['since_start_s']:.1f} s ago beside phases 13-14, "
+          f"{waited:.1f} s waited for here", flush=True)
+    return out
+
+
 def card_line() -> str:
     """The card's name and power limit as nvidia-smi prints them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4953,6 +5276,11 @@ def main(argv=None):
     p12["flash_fwd"] += encvlm["qwen2_vl"]["multimodal"][
         "launches_prefill"]["flash_fwd"]
 
+    # phase 15 (c) runs beside phases 13 and 14: it needs no card
+    import tempfile
+    dry_tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    dry = dryrun_start(dry_tmp)
+
     # ---- phase 13
     print("phase 13: the MoE, SSM, encoder-decoder and VLM families trained "
           "at the reference's presets: the flash backward at their shapes; "
@@ -4979,6 +5307,29 @@ def main(argv=None):
     examples["phase_s"] = time.perf_counter() - t14
     print(f"  phase 14 took {examples['phase_s']:.1f} s", flush=True)
 
+    # ---- phase 15
+    print("phase 15: distribution and tooling: (a) llama4-scout's expert-"
+          "parallel steps (run inside phase 11), (b) the elastic restore "
+          "(inside phase 9), (c) the dry run of qwen2-0.5b x train_4k with "
+          "no card", flush=True)
+    try:
+        dist15 = {"ep": families["llama4"].pop("phase15"),
+                  "elastic": fleet["ckpt"].pop("phase15"),
+                  "dryrun": dryrun_cell(dry, dry_tmp, train)}
+    finally:
+        shutil.rmtree(dry_tmp, ignore_errors=True)
+    # (c) ran beside phases 13-14: its share is the time waited for here
+    dist15["phase_s"] = dist15["ep"]["s"] + dist15["elastic"]["s"] + \
+        dist15["dryrun"]["waited_s"]
+    print(f"  phase 15 took {dist15['phase_s']:.1f} s ((a) "
+          f"{dist15['ep']['s']:.1f}, (b) {dist15['elastic']['s']:.1f}, (c) "
+          f"{dist15['dryrun']['waited_s']:.1f} waited, "
+          f"{dist15['dryrun']['total_s']} in its process)", flush=True)
+    p15 = dist15["ep"]["launches"]
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
     # ---- report
     def pick(rows_, key, val):
         return next(r for r in rows_ if r[key] == val)
@@ -5002,7 +5353,8 @@ def main(argv=None):
                 "phase11_launches": p11[name],
                 "phase12_launches": p12[name],
                 "phase13_launches": p13[name],
-                "phase14_launches": p14[name], "shapes": shapes}
+                "phase14_launches": p14[name],
+                "phase15_launches": p15[name], "shapes": shapes}
 
     report = {"kernels": [
         entry("tensor_stats", "tensor_stats.cu",
@@ -5036,6 +5388,7 @@ def main(argv=None):
         "train": train, "fleet": fleet, "aggregator": aggregator,
         "fuzz": fuzz, "families": families, "encdec_vlm": encvlm,
         "family_training": fam_train, "examples": examples,
+        "distribution": dist15,
         "train_launches_of_serving_kernels": {
             k: tl[k] for k in SERVING_KERNELS},
         "flash_sm90_build": sm90_build, "probe_build": probe_build}

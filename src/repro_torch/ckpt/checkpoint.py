@@ -14,7 +14,15 @@ Commit protocol: write into `step_<N>.tmp`, then rename -- a crash mid-save
 never corrupts the latest checkpoint. `latest()` returns the newest
 COMMITTED step. Saves go through the sys_checkpoint_save framework syscall
 and restores through sys_checkpoint_restore (eBPF programs can audit or
-veto them). Elastic restore onto another mesh comes with ROADMAP A14.
+veto them).
+
+Elastic resharding: the files hold full arrays, whatever mesh wrote them.
+`save` takes DTensor leaves, gathers each with `full_tensor()` (a
+collective every rank of its mesh runs), and rank 0 writes. `restore`
+with `shardings` (a tree of `dist.sharding.PartitionSpec`s shaped like
+`like`) and a `mesh` (or the active one) places each leaf with
+`distribute_tensor`: every rank reads the same files and keeps its own
+shard, so a checkpoint written on one mesh restores onto any other.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..dist.sharding import PartitionSpec
 
 _LIVE = "__live_table__"
 
@@ -38,7 +47,8 @@ def _flatten(tree, path=()):
         return [x for k in sorted(tree)
                 if not (path and path[-1] == _LIVE and k == "packed")
                 for x in _flatten(tree[k], path + (str(k),))]
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and \
+            not isinstance(tree, PartitionSpec):
         return [x for i, t in enumerate(tree)
                 for x in _flatten(t, path + (str(i),))]
     return [("/".join(path), tree)]
@@ -74,11 +84,20 @@ def _host(x) -> tuple[np.ndarray, bool]:
     made now, so nothing the caller does next can change what is saved."""
     if isinstance(x, torch.Tensor):
         t = x.detach()
+        if _is_dtensor(t):
+            t = t.full_tensor()
         bf16 = t.dtype == torch.bfloat16
         if bf16:
             t = t.view(torch.int16)
         return t.to("cpu", copy=True).contiguous().numpy(), bf16
     return np.array(x, copy=True), False
+
+
+def _is_dtensor(x) -> bool:
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
 
 
 def _write_leaf(path: str, arr: np.ndarray, bf16: bool) -> None:
@@ -102,10 +121,19 @@ def save(ckpt_dir: str, step: int, state, *, runtime=None,
     with a NEGATIVE code (-errno) is a transient write fault -- the save is
     retried up to `fault_retries` times, then skipped (training continues;
     the previous committed checkpoint stays latest). A non-negative
-    override is a policy veto: skipped immediately."""
+    override is a policy veto: skipped immediately.
+
+    With DTensor leaves every rank must call this: each leaf is gathered
+    (a collective), rank 0 writes, and a blocking save returns on every
+    rank once the files are committed."""
     flat = _flatten(state)
     names = [n for n, _ in flat]
+    dist_save = any(_is_dtensor(x) for _, x in flat)
     host = [_host(x) for _, x in flat]
+    if dist_save and torch.distributed.get_rank() != 0:
+        if blocking:
+            torch.distributed.barrier()
+        return None
 
     def impl():
         tmp = os.path.join(ckpt_dir, f"step_{step}.tmp")
@@ -136,6 +164,8 @@ def save(ckpt_dir: str, step: int, state, *, runtime=None,
 
     if blocking:
         run()
+        if dist_save:
+            torch.distributed.barrier()
         return None
     t = threading.Thread(target=run, daemon=True)
     t.start()
@@ -170,10 +200,29 @@ def restore(ckpt_dir: str, step: int, like, *, mesh=None, shardings=None,
             runtime=None, fault_retries: int = 3, device="cuda"):
     """Restore into the structure of `like` (a tree of tensors or arrays
     giving each leaf's shape, and bf16 where the file holds raw bytes), on
-    `device` (CUDA unless the caller passes "cpu")."""
-    if mesh is not None or shardings is not None:
-        raise NotImplementedError("elastic restore onto a mesh comes with "
-                                  "dist/sharding.py (ROADMAP A14)")
+    `device` (CUDA unless the caller passes "cpu").
+
+    With `shardings`, a tree of `PartitionSpec`s shaped like `like`, each
+    leaf becomes a DTensor on `mesh` (default: the active mesh) with the
+    spec's placements, on the mesh's device type: elastic resharding."""
+    placed = None
+    if shardings is not None:
+        from ..dist import sharding as SH
+        from torch.distributed.tensor import distribute_tensor
+        mesh = mesh if mesh is not None else SH.active_mesh()
+        if mesh is None:
+            raise ValueError("restore with shardings needs a mesh")
+        specs = [x for _, x in _flatten(shardings)]
+        dm = SH.device_mesh_of(mesh)
+        device = dm.device_type
+
+        def placed(i, t):
+            # every rank holds the full array: keep the local shard, no
+            # collective (src_data_rank=None)
+            return distribute_tensor(t, dm, SH.placements(specs[i], mesh),
+                                     src_data_rank=None)
+    elif mesh is not None:
+        raise ValueError("restore onto a mesh needs shardings")
     dev = resolve(device)
 
     def impl():
@@ -191,6 +240,11 @@ def restore(ckpt_dir: str, step: int, like, *, mesh=None, shardings=None,
                 raise ValueError(f"leaf {i}: {arr.shape} != "
                                  f"{tuple(np.shape(ref))}")
             out.append(_to_tensor(arr, ref, i, dev))
+        if placed is not None:
+            if len(specs) != len(out):
+                raise ValueError(f"{len(specs)} shardings for {len(out)} "
+                                 "leaves")
+            out = [placed(i, t) for i, t in enumerate(out)]
         return _unflatten(like, iter(out))
 
     if runtime is not None:

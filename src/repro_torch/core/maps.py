@@ -134,8 +134,10 @@ def pow2(device) -> torch.Tensor:
     t = _POW2_T.get(key)
     if t is None:
         t = torch.as_tensor(_POW2, device=key)
-        # under torch.export this is a traced tensor, no constant to keep
-        if not torch.compiler.is_exporting():
+        # under torch.export or the dry run's count this is a fake
+        # tensor, no constant to keep
+        from ..device import tracing
+        if not tracing():
             _POW2_T[key] = t
     return t
 

@@ -1,2 +1,3 @@
-"""Distribution layer of the port: gradient compression. Sharding and
-expert parallelism come with ROADMAP A14."""
+"""Distribution layer of the port: gradient compression, the sharding
+rules and DTensor placements (`sharding.py`), and expert parallelism over
+`torch.distributed` (`expert_parallel.py`)."""

@@ -1,2 +1,3 @@
 """Fault tolerance of the port: heartbeats, stragglers, restart from a
-checkpoint. Elastic restore onto another mesh comes with ROADMAP A14."""
+checkpoint. Elastic restore onto another mesh is
+`ckpt/checkpoint.restore(..., mesh=, shardings=)`."""

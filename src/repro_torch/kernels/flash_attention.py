@@ -42,6 +42,7 @@ import ctypes
 
 import torch
 
+from ..device import tracing
 from . import build, ref
 
 FWD_LAUNCHES = 0              # one per forward launch
@@ -155,18 +156,61 @@ def flash_bwd_cuda(q, k, v, o, lse, do, causal: bool = True):
     return dq, dk, dv
 
 
+def _flash_fwd(q, k, v, causal: bool):
+    if build.on_card(q, "flash attention"):
+        return flash_fwd_cuda(q, k, v, causal)
+    return ref.flash_fwd(q, k, v, causal, q.shape[0] // k.shape[0])
+
+
+def _flash_bwd(q, k, v, o, lse, do, causal: bool):
+    if build.on_card(q, "flash attention"):
+        return flash_bwd_cuda(q, k, v, o, lse, do, causal)
+    return ref.flash_bwd(q, k, v, o, lse, do, causal,
+                         q.shape[0] // k.shape[0])
+
+
+# ---- the custom operators: the same functions behind the dispatcher, with
+# fake implementations, taken only while a step is traced (device.tracing)
+Tensor = torch.Tensor
+
+
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _flash_fwd_op(q: Tensor, k: Tensor, v: Tensor,
+                  causal: bool) -> tuple[Tensor, Tensor]:
+    return tuple(_flash_fwd(q, k, v, causal))
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, causal):
+    return torch.empty_like(q), q.new_empty(q.shape[:2], dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::flash_bwd", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _flash_bwd_op(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
+                  do: Tensor, causal: bool) -> tuple[Tensor, Tensor, Tensor]:
+    return tuple(_flash_bwd(q, k, v, o, lse, do, causal))
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, o, lse, do, causal):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
 class FlashAttention(torch.autograd.Function):
     """o = attention(q, k, v) in the kernel layout, differentiable. Saves
     q, k, v, o and lse; the backward returns dq, dk, dv in the inputs'
     types, as `_fa_fwd`/`_fa_bwd` do. A CUDA tensor launches the kernels,
-    a CPU tensor runs the plain versions."""
+    a CPU tensor runs the plain versions; while tracing, both go through
+    `torch.ops.repro_torch.flash_fwd`/`flash_bwd`."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool = True):
-        if build.on_card(q, "flash attention"):
-            o, lse = flash_fwd_cuda(q, k, v, causal)
+        if tracing():
+            o, lse = torch.ops.repro_torch.flash_fwd(q, k, v, causal)
         else:
-            o, lse = ref.flash_fwd(q, k, v, causal, q.shape[0] // k.shape[0])
+            o, lse = _flash_fwd(q, k, v, causal)
         ctx.causal = causal
         ctx.save_for_backward(q, k, v, o, lse)
         return o
@@ -175,9 +219,9 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.to(q.dtype).contiguous()
-        if build.on_card(q, "flash attention"):
-            dq, dk, dv = flash_bwd_cuda(q, k, v, o, lse, do, ctx.causal)
+        if tracing():
+            dq, dk, dv = torch.ops.repro_torch.flash_bwd(q, k, v, o, lse, do,
+                                                         ctx.causal)
         else:
-            dq, dk, dv = ref.flash_bwd(q, k, v, o, lse, do, ctx.causal,
-                                       q.shape[0] // k.shape[0])
+            dq, dk, dv = _flash_bwd(q, k, v, o, lse, do, ctx.causal)
         return dq, dk, dv, None

@@ -9,9 +9,12 @@ The three probe kernels are also custom operators,
 tensor_stats_row}`: the CUDA implementation is the kernel's launch, the CPU
 one its plain version, and a fake implementation gives the output shapes,
 so `torch.export` can trace a step through them (`core/runtime.aot_step`)
-and the exported program launches the same kernels. An eager call skips
-the dispatcher, which costs a host-bound step more than the launch
-(PERF.md); the operators are taken only while exporting.
+and the exported program launches the same kernels, and the dry run
+(`launch/op_cost.py`) can count a step on fake tensors. An eager call
+skips the dispatcher, which costs a host-bound step more than the launch
+(PERF.md); the operators are taken only while tracing
+(`device.tracing`). Flash attention's operators are in
+`flash_attention.py`.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 
 from . import (flash_attention as fa, hash_update, ref, ringbuf_emit,
                table_interp as ti, tensor_stats as ts)
+from ..device import tracing
 from .build import on_card
 
 # kernel name -> (module, name of its launch counter)
@@ -111,20 +115,17 @@ def _(data, head, dropped, rows, valid):
             torch.empty_like(dropped))
 
 
-_exporting = torch.compiler.is_exporting
-
-
 def tensor_stats_row(x, site_id: int, kind: int, layer: int):
     """The collector's i64[16] event row of `x`: one kernel launch for a
     CUDA tensor, `ref.tensor_stats_row` for a CPU tensor."""
-    if _exporting():
+    if tracing():
         return torch.ops.repro_torch.tensor_stats_row(x, site_id, kind,
                                                       layer)
     return _tensor_stats_row(x, site_id, kind, layer)
 
 
 def hash_fetch_add_batch(keys_tbl, used_tbl, vals_tbl, keys, deltas, valid):
-    if _exporting():
+    if tracing():
         return torch.ops.repro_torch.hash_fetch_add_batch(
             keys_tbl, used_tbl, vals_tbl, keys, deltas, valid)
     return _hash_fetch_add_batch(keys_tbl, used_tbl, vals_tbl, keys, deltas,
@@ -134,7 +135,7 @@ def hash_fetch_add_batch(keys_tbl, used_tbl, vals_tbl, keys, deltas, valid):
 def ringbuf_emit_batch(data, head, dropped, rows, valid):
     """The RINGBUF apply: (data, head, dropped) after appending the valid
     rows, in one kernel launch for a CUDA ring."""
-    if _exporting():
+    if tracing():
         return torch.ops.repro_torch.ringbuf_emit_batch(data, head, dropped,
                                                         rows, valid)
     return _ringbuf_emit_batch(data, head, dropped, rows, valid)

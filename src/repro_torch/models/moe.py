@@ -3,8 +3,8 @@
 The GSPMD formulation of the JAX package (`repro/models/moe.py`): one
 global scatter into [E, C, D], the expert FFN as three einsums over the
 stacked expert weights, and a weighted scatter-add back to the tokens.
-The expert-parallel path (an all_to_all over a mesh) is not in this
-package yet (ROADMAP A14).
+The expert-parallel path (each rank of a mesh's 'model' axis runs its
+share of the experts, REPRO_MOE_EP=1) is `dist/expert_parallel.py`.
 
 Router probe sites make this the flagship bpftime use case: per-expert load
 and overflow-drop counters via eBPF maps (`launch/serve.py` MOE_PROBES).

@@ -103,6 +103,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
 # superblock forward
 # --------------------------------------------------------------------------
 
+def _moe_dispatch(p, x, cfg: ModelConfig):
+    """`moe.apply_moe` by default; expert parallelism over the mesh's
+    'model' axis with REPRO_MOE_EP=1 (needs an active mesh whose 'model'
+    axis divides num_experts), read on every call."""
+    import os
+    from ..dist.sharding import active_mesh
+    mesh = active_mesh()
+    if (os.environ.get("REPRO_MOE_EP", "0") == "1" and mesh is not None
+            and "model" in mesh.axis_names
+            and cfg.num_experts % mesh.shape["model"] == 0):
+        from ..dist.expert_parallel import apply_moe_ep
+        return apply_moe_ep(p, x, cfg)
+    return MOE.apply_moe(p, x, cfg)
+
+
 def _superblock_fwd(p_sb, x, cache_sb, positions, cfg: ModelConfig,
                     mode: str, cache_pos):
     new_cache = []
@@ -143,8 +158,7 @@ def _superblock_fwd(p_sb, x, cache_sb, positions, cfg: ModelConfig,
         if ffn != "none":
             h2 = L.apply_norm(p["norm2"], x, cfg)
             if ffn == "moe":
-                # the GSPMD path; the expert-parallel one is ROADMAP A14
-                f = MOE.apply_moe(p["moe"], h2, cfg)
+                f = _moe_dispatch(p["moe"], h2, cfg)
                 if cfg.moe_shared:
                     f = f + L.apply_mlp(p["mlp_shared"], h2, cfg)
             else:

@@ -61,6 +61,24 @@ def init_train_state(cfg: ModelConfig, tcfg: TrainConfig, runtime=None,
     }
 
 
+def abstract_train_state(cfg: ModelConfig, tcfg: TrainConfig, runtime=None,
+                         device="meta") -> dict:
+    """The train state's shapes and dtypes as stand-ins on `device`, with
+    nothing drawn: "meta" (no memory), or any device inside an active
+    FakeTensorMode (the dry run). The twin of JAX's `jax.eval_shape` of
+    `init_train_state`."""
+    from ..launch.specs import abstract_params
+    params = abstract_params(cfg, tcfg.param_dtype, device)
+    opt_init, _ = make_optimizer(tcfg.optimizer)
+    return {
+        "params": params,
+        "opt": opt_init(params),
+        "step": torch.zeros((), dtype=torch.int32, device=device),
+        "maps": runtime.init_device_maps(device) if runtime is not None
+        else {},
+    }
+
+
 def _to_device(batch: dict, dev) -> dict:
     out = {}
     for k, v in batch.items():

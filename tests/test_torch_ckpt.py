@@ -253,12 +253,53 @@ def test_live_table_saved_as_its_fields_and_rebuilt(tmp_path):
 
 
 def test_restore_refuses_a_mesh_and_asks_for_cuda(tmp_path):
-    with pytest.raises(NotImplementedError, match="A14"):
-        CK.restore(str(tmp_path), 1, {}, mesh=object())
+    """A mesh with shardings restores (elastic restore; it was refused
+    before dist/sharding.py existed); a mesh without shardings, or
+    shardings without a mesh, is refused; the default device asks for
+    CUDA."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.dist.sharding import PartitionSpec as P, use_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    w = torch.arange(6.).reshape(2, 3)
+    CK.save(str(tmp_path), 1, {"w": w})
+    mesh = make_host_mesh((1, 1), device=CPU)
+    got = CK.restore(str(tmp_path), 1, {"w": torch.zeros(2, 3)}, mesh=mesh,
+                     shardings={"w": P("data", "model")})
+    assert isinstance(got["w"], DTensor)
+    assert torch.equal(got["w"].full_tensor(), w)
+    with use_mesh(mesh):                 # the active mesh stands in
+        got = CK.restore(str(tmp_path), 1, {"w": w}, shardings={"w": P()})
+    assert torch.equal(got["w"].to_local(), w)
+    with pytest.raises(ValueError, match="needs shardings"):
+        CK.restore(str(tmp_path), 1, {"w": w}, mesh=mesh)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        CK.restore(str(tmp_path), 1, {"w": w}, shardings={"w": P()})
     if not torch.cuda.is_available():
         CK.save(str(tmp_path), 1, {"w": torch.ones(2)})
         with pytest.raises(RuntimeError, match="device='cpu'"):
             CK.restore(str(tmp_path), 1, {"w": torch.ones(2)})
+
+
+def test_elastic_reshard_restore(tmp_path):
+    """test_ft.py's elastic reshard: a state saved without a mesh restores
+    onto a 1x1 mesh, replicated, with identical values; `like` is the
+    abstract state (meta tensors), as JAX's is an eval_shape."""
+    from repro_torch.dist.sharding import PartitionSpec as P
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import tree_map
+    tcfg = TB.TrainConfig()
+    gen = torch.Generator().manual_seed(0)
+    state = t_init(TCFG_, tcfg, None, gen, CPU)
+    CK.save(str(tmp_path), 1, state)
+    like = TS.abstract_train_state(TCFG_, tcfg)
+    mesh = make_host_mesh((1, 1), device=CPU)
+    shardings = tree_map(lambda _: P(), like)
+    restored = CK.restore(str(tmp_path), 1, like, mesh=mesh,
+                          shardings=shardings)
+    for a, b in zip(tree_leaves(state["params"]),
+                    tree_leaves(restored["params"])):
+        np.testing.assert_array_equal(a.numpy(), b.full_tensor().numpy())
+    assert int(restored["step"].full_tensor()) == 0
 
 
 # -------------------------------------------------- test_train.py's checks

@@ -766,6 +766,13 @@ assert aggregator <= set(names), aggregator - set(names)
 families = {"repro_torch.models.moe", "repro_torch.models.ssm",
             "repro_torch.models.encdec"}
 assert families <= set(names), families - set(names)
+dist_tools = {"repro_torch.dist.sharding", "repro_torch.dist.expert_parallel",
+              "repro_torch.launch.mesh", "repro_torch.launch.specs",
+              "repro_torch.launch.op_cost", "repro_torch.launch.analysis",
+              "repro_torch.launch.dryrun"}
+assert dist_tools <= set(names), dist_tools - set(names)
+import torch.distributed as dist    # importing them started no group
+assert not dist.is_initialized()
 twins = sorted(pathlib.Path(sys.argv[1]).glob("*.py"))
 assert len(twins) == 8, twins
 for path in twins:                 # each twin imports the port alone

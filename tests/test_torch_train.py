@@ -510,12 +510,20 @@ def test_run_training_on_cpu_loss_decreases(capsys):
     assert "step 30" in capsys.readouterr().out
 
 
-def test_run_training_asks_for_cuda_and_refuses_later_slices():
-    # shm, the artifact cache, a cached exported step, checkpoints and int8
-    # compression are ported; elastic restore waits for ROADMAP A14
+def test_run_training_asks_for_cuda_and_refuses_later_slices(tmp_path):
+    # shm, the artifact cache, a cached exported step, checkpoints, int8
+    # compression and elastic restore are ported (no later slice is
+    # refused now); elastic restore needs a mesh, given or active
     from repro_torch.ckpt import checkpoint as CK
-    with pytest.raises(NotImplementedError, match="A14"):
+    from repro_torch.dist.sharding import PartitionSpec as P
+    from repro_torch.launch.mesh import make_host_mesh
+    with pytest.raises(ValueError, match="needs a mesh"):
         CK.restore("x", 1, {}, shardings={})
+    CK.save(str(tmp_path), 1, {"step": torch.tensor(3)})
+    got = CK.restore(str(tmp_path), 1, {"step": torch.tensor(0)},
+                     mesh=make_host_mesh((1, 1), device=CPU),
+                     shardings={"step": P()})
+    assert int(got["step"].full_tensor()) == 3
     t_make(TCFG_, TB.TrainConfig(grad_compression="int8"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
