@@ -29,6 +29,7 @@ import threading
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import telemetry as T
 from ..kernels import ops
 from ..kernels.ref import (EVENT_WIDTH, FX_ONE, FX_SHIFT,  # noqa: F401
                            STAT_KEYS, to_fx)
@@ -146,18 +147,19 @@ class Collector:
         and a probed tensor that carries gradients saves nothing for the
         backward pass. With the default stats this is one kernel launch on
         a CUDA tensor and no other device operation."""
-        tensor = tensor.detach()
-        if self.stats_fn is None:
-            self.emit_row(ops.tensor_stats_row(tensor, site_id, kind,
-                                               int(self.layer_ctx)))
-            return
-        st = self.stats_fn(tensor)
-        fx = to_fx(torch.stack([st[k] for k in STAT_KEYS]))
-        cnt = torch.stack([st["nan_cnt"], st["inf_cnt"]]).to(I64)
-        row = torch.cat([self._header(site_id, kind, tensor.numel(),
-                                      tensor.device),
-                         fx, cnt, torch.zeros_like(fx[:4])])
-        self.emit_row(row)
+        with T.span("probe.emit"):
+            tensor = tensor.detach()
+            if self.stats_fn is None:
+                self.emit_row(ops.tensor_stats_row(tensor, site_id, kind,
+                                                   int(self.layer_ctx)))
+                return
+            st = self.stats_fn(tensor)
+            fx = to_fx(torch.stack([st[k] for k in STAT_KEYS]))
+            cnt = torch.stack([st["nan_cnt"], st["inf_cnt"]]).to(I64)
+            row = torch.cat([self._header(site_id, kind, tensor.numel(),
+                                          tensor.device),
+                             fx, cnt, torch.zeros_like(fx[:4])])
+            self.emit_row(row)
 
     def take_all_rows(self, device=None):
         """The tape: every row emitted so far, i64[N, 16], in emission

@@ -42,6 +42,7 @@ import ctypes
 
 import torch
 
+from .. import telemetry
 from ..device import tracing
 from . import build, ref
 
@@ -125,6 +126,8 @@ def flash_fwd_cuda(q, k, v, causal: bool = True):
             build.stream_ptr(q.device))
     build.check(rc, "flash_fwd")
     FWD_LAUNCHES += 1
+    if telemetry.on():
+        telemetry.count("flash.fwd", (BH, BKH, Sq, hd, bool(causal)))
     return o, lse
 
 
@@ -153,6 +156,8 @@ def flash_bwd_cuda(q, k, v, o, lse, do, causal: bool = True):
             int(causal), build.stream_ptr(q.device))
     build.check(rc, "flash_bwd")
     BWD_LAUNCHES += 1
+    if telemetry.on():
+        telemetry.count("flash.bwd", (BH, BKH, Sq, hd, bool(causal)))
     return dq, dk, dv
 
 

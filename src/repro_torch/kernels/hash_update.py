@@ -32,6 +32,7 @@ import ctypes
 
 import torch
 
+from .. import telemetry
 from . import build
 
 LAUNCHES = 0
@@ -121,4 +122,7 @@ def hash_fetch_add_batch_cuda(keys_tbl, used_tbl, vals_tbl, keys, deltas,
                    counters.data_ptr(), stream)
     build.check(rc, "hash_fetch_add_batch")
     LAUNCHES += 1
+    if telemetry.on():
+        telemetry.count("probe.hash_fetch_add", telemetry.shapes(
+            keys_tbl, used_tbl, vals_tbl, keys, deltas, valid))
     return kt, ut, vt

@@ -23,6 +23,7 @@ import ctypes
 
 import torch
 
+from .. import telemetry
 from . import build
 
 LAUNCHES = 0
@@ -70,4 +71,7 @@ def ringbuf_emit_batch_cuda(data, head, dropped, rows, valid):
                    build.stream_ptr(dev))
     build.check(rc, "ringbuf_emit_batch")
     LAUNCHES += 1
+    if telemetry.on():
+        telemetry.count("probe.ringbuf_emit", telemetry.shapes(
+            data, head, dropped, rows, valid))
     return d, h, dr

@@ -30,6 +30,7 @@ import ctypes
 
 import torch
 
+from .. import telemetry
 from . import build
 from .ref import STAT_KEYS
 
@@ -95,6 +96,7 @@ def _launch(symbol: str, x: torch.Tensor, grid: int, *tail) -> None:
                          grid, scratch.data_ptr(), *tail, stream)
     build.check(rc, "tensor_stats")
     LAUNCHES += 1
+    telemetry.count("probe.tensor_stats", (symbol, n, x.element_size()))
 
 
 def tensor_stats_cuda(x: torch.Tensor) -> dict:

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import telemetry as T
 from ..configs.base import ModelConfig
 from ..device import resolve
 from . import encdec as ED, transformer as TF
@@ -50,7 +51,8 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat=False):
                                embeds=batch.get("embeds"),
                                positions=batch.get("positions"),
                                mode="train", remat=remat)
-    loss = cross_entropy(logits, batch["labels"], cfg.vocab_size)
+    with T.span("model.loss"):
+        loss = cross_entropy(logits, batch["labels"], cfg.vocab_size)
     return loss, {"loss": loss}
 
 

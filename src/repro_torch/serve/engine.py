@@ -12,6 +12,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from .. import telemetry as T
 from ..configs.base import ModelConfig
 from ..device import resolve
 from ..models import registry as MR
@@ -89,19 +90,22 @@ class ServeEngine:
 
     def _prefill_slot(self, slot: int, req: Request):
         """Single-request prefill (unprobed) into its slot of the cache."""
-        toks = torch.tensor([req.prompt], dtype=torch.int64,
-                            device=self.device)
-        c1 = MR.make_cache(self.cfg, 1, self.max_seq, torch.float32,
-                           self.device)
-        logits, c1 = MR.prefill_fn(self.params, {"tokens": toks}, c1,
-                                   self.cfg)
-        # the engine owns its cache: write the slot in place
-        for full, one in zip(self.cache["blocks"], c1["blocks"]):
-            for f in full:
-                full[f][:, slot] = one[f][:, 0]
-        self.cache["pos"][slot] = c1["pos"][0]
-        nxt = int(torch.argmax(logits[0, -1, :self.cfg.vocab_size]))
-        req.out.append(nxt)
+        with T.span("serve.prefill"):
+            T.count("serve.prefill_tokens", len(req.prompt))
+            toks = torch.tensor([req.prompt], dtype=torch.int64,
+                                device=self.device)
+            c1 = MR.make_cache(self.cfg, 1, self.max_seq, torch.float32,
+                               self.device)
+            logits, c1 = MR.prefill_fn(self.params, {"tokens": toks}, c1,
+                                       self.cfg)
+            # the engine owns its cache: write the slot in place
+            with T.span("serve.slot_write"):
+                for full, one in zip(self.cache["blocks"], c1["blocks"]):
+                    for f in full:
+                        full[f][:, slot] = one[f][:, 0]
+                self.cache["pos"][slot] = c1["pos"][0]
+            nxt = int(torch.argmax(logits[0, -1, :self.cfg.vocab_size]))
+            req.out.append(nxt)
 
     # ------------------------------------------------------------- main loop
     def submit_all(self, requests: list[Request]) -> list[Request]:
@@ -111,33 +115,48 @@ class ServeEngine:
         pending = [r for r in queue if not r.rejected]
 
         while pending or any(self.active):
-            if self.runtime is not None and self.runtime.shm is not None:
-                # daemon injection point: live attach requests land on the
-                # running decode step without rebuilding it
-                self.runtime.poll_control()
-                self.maps = self.runtime.sync_live_table(self.maps)
-            # refill slots
+            with T.span("serve.iteration"):
+                self._iteration(pending)
+        return requests
+
+    def _iteration(self, pending: list[Request]) -> None:
+        """One pass of the loop: control, refills, the batched decode over
+        the occupied slots, publish, the token read, retirement."""
+        if self.runtime is not None and self.runtime.shm is not None:
+            # daemon injection point: live attach requests land on the
+            # running decode step without rebuilding it
+            self.runtime.poll_control()
+            self.maps = self.runtime.sync_live_table(self.maps)
+        with T.span("serve.refill"):
             for s in range(self.slots):
                 if self.active[s] is None and pending:
                     req = pending.pop(0)
                     self._prefill_slot(s, req)
                     self.active[s] = req
-            # batched decode over occupied slots
-            toks = [[r.out[-1] if r is not None and r.out else 0]
-                    for r in self.active]
-            nxt, _, self.cache, self.maps = self._decode(
-                self.params,
-                torch.tensor(toks, dtype=torch.int64, device=self.device),
-                self.cache, self.maps, self.step_count)
-            if self._decode.last is not None:
-                self.events += self._decode.last[0].shape[0]
-            self.step_count += 1
-            if self.runtime is not None:
+        # batched decode over occupied slots
+        toks = [[r.out[-1] if r is not None and r.out else 0]
+                for r in self.active]
+        nxt, _, self.cache, self.maps = self._decode(
+            self.params,
+            torch.tensor(toks, dtype=torch.int64, device=self.device),
+            self.cache, self.maps, self.step_count)
+        if self._decode.last is not None:
+            self.events += self._decode.last[0].shape[0]
+        self.step_count += 1
+        if self.runtime is not None:
+            with T.span("serve.publish"):
                 self.runtime.publish(self.maps)   # no-op without shm
+        with T.span("serve.read"):
             nxt = nxt.tolist()
+        with T.span("serve.retire"):
+            counting = T.on()
             for s, r in enumerate(self.active):
                 if r is None:
                     continue
+                if counting:
+                    # the position this step decoded the slot at
+                    T.count("serve.decode_position",
+                            len(r.prompt) + len(r.out) - 1)
                 r.out.append(int(nxt[s]))
                 if (len(r.out) >= r.max_new or int(nxt[s]) == self.eos
                         or len(r.prompt) + len(r.out) >= self.max_seq - 1):
@@ -147,4 +166,3 @@ class ServeEngine:
                             "sys_serve_evict", [r.rid, len(r.out)],
                             impl=lambda: True)
                     self.active[s] = None
-        return requests

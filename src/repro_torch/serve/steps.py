@@ -7,6 +7,7 @@ import contextlib
 
 import torch
 
+from .. import telemetry as T
 from ..configs.base import ModelConfig
 from ..core import events as E, jit as J
 from ..models import registry as MR
@@ -24,23 +25,30 @@ def make_decode_step(cfg: ModelConfig, runtime=None, probe_mode=None):
 
     def decode_step(params, tokens, cache, maps, step: int):
         """tokens [B,1] int; returns (next_token [B], logits, cache, maps)."""
-        col = E.Collector(wanted) if runtime else None
-        with col if col is not None else contextlib.nullcontext():
-            logits, cache = MR.decode_fn(params, tokens, cache, cfg)
-            if col is not None:
-                E.probe_site("decode.logits", logits)
-                rows = col.take_all_rows(tokens.device)
-        # mask vocab padding before argmax (argmax takes the first maximum)
-        if cfg.padded_vocab > cfg.vocab_size:
-            logits = logits.clone()
-            logits[..., cfg.vocab_size:] = float("-inf")
-        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-        decode_step.last = None
-        if runtime is not None and rows.shape[0] > 0:
-            aux = J.make_aux(time_ns=step, device=tokens.device)
-            rows[:, 3] = step
-            decode_step.last = (rows, maps, step, runtime.table_generation)
-            maps, aux = runtime.probe_stage(rows, maps, aux, mode=probe_mode)
+        with T.span("decode.step"):
+            col = E.Collector(wanted) if runtime else None
+            with T.span("decode.model"), \
+                    col if col is not None else contextlib.nullcontext():
+                logits, cache = MR.decode_fn(params, tokens, cache, cfg)
+                if col is not None:
+                    E.probe_site("decode.logits", logits)
+                    rows = col.take_all_rows(tokens.device)
+            with T.span("decode.sample"):
+                # mask vocab padding before argmax (argmax takes the first
+                # maximum)
+                if cfg.padded_vocab > cfg.vocab_size:
+                    logits = logits.clone()
+                    logits[..., cfg.vocab_size:] = float("-inf")
+                nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            decode_step.last = None
+            if runtime is not None and rows.shape[0] > 0:
+                aux = J.make_aux(time_ns=step, device=tokens.device)
+                rows[:, 3] = step
+                decode_step.last = (rows, maps, step,
+                                    runtime.table_generation)
+                with T.span("probe.stage"):
+                    maps, aux = runtime.probe_stage(rows, maps, aux,
+                                                    mode=probe_mode)
         return nxt, logits, cache, maps
 
     decode_step.last = None

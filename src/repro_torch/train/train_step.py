@@ -30,6 +30,7 @@ import contextlib
 
 import torch
 
+from .. import telemetry as T
 from ..configs.base import ModelConfig, TrainConfig
 from ..core import events as E, jit as J
 from ..device import resolve
@@ -105,14 +106,20 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, runtime=None,
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
         with torch.enable_grad():
-            loss, _ = MR.loss_fn(_with_leaves(params, leaves), mb, cfg,
-                                 remat=tcfg.remat)
+            with T.span("train.forward"):
+                loss, _ = MR.loss_fn(_with_leaves(params, leaves), mb, cfg,
+                                     remat=tcfg.remat)
             if col is not None:
                 E.probe_site("loss", loss.reshape(1))
-            grads = torch.autograd.grad(loss, leaves)
+            with T.span("train.backward"):
+                grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), _with_leaves(params, list(grads))
 
     def train_step(state, batch):
+        with T.span("train.step"):
+            return _train_step(state, batch)
+
+    def _train_step(state, batch):
         params = state["params"]
         dev = tree_leaves(params)[0].device
         batch = _to_device(batch, dev)
@@ -125,19 +132,23 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, runtime=None,
                     loss, g = loss_and_grads(
                         params, {k: v[i] for k, v in batch.items()}, col)
                     losses.append(loss)
-                    acc = tree_map(lambda a: a.to(F32), g) if acc is None \
-                        else tree_map(lambda a, b: a + b.to(F32), acc, g)
+                    with T.span("train.accumulate"):
+                        acc = tree_map(lambda a: a.to(F32), g) \
+                            if acc is None \
+                            else tree_map(lambda a, b: a + b.to(F32), acc, g)
                     del g
-                grads = tree_map(lambda a: a / nmb, acc)
-                loss = torch.stack(losses).mean()
+                with T.span("train.accumulate"):
+                    grads = tree_map(lambda a: a / nmb, acc)
+                    loss = torch.stack(losses).mean()
             else:
                 loss, grads = loss_and_grads(params, batch, col)
 
-            grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
-            if tcfg.grad_compression == "int8":
-                # after the clip, as JAX: 'grad.norm' sees the norm from
-                # before compression
-                grads = int8_roundtrip(grads)
+            with T.span("train.clip"):
+                grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
+                if tcfg.grad_compression == "int8":
+                    # after the clip, as JAX: 'grad.norm' sees the norm
+                    # from before compression
+                    grads = int8_roundtrip(grads)
             if col is not None:
                 E.probe_site("grad.norm", gnorm.reshape(1))
                 E.probe_site("optimizer.update", loss.reshape(1))
@@ -151,15 +162,19 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, runtime=None,
         veto = False
         if runtime is not None and rows.shape[0] > 0:
             rows[:, 3] = step.to(torch.int64)
-            maps, aux = runtime.probe_stage(rows, maps, aux, mode=probe_mode)
+            with T.span("probe.stage"):
+                maps, aux = runtime.probe_stage(rows, maps, aux,
+                                                mode=probe_mode)
             # filter semantics: an override vetoes this step's update
-            veto = bool(aux["override_set"] != 0)
+            with T.span("train.veto_read"):
+                veto = bool(aux["override_set"] != 0)
         if veto:
             new_params, new_opt = params, state["opt"]
         else:
-            new_params, new_opt = opt_update(
-                params, grads, state["opt"], lr,
-                weight_decay=tcfg.weight_decay, step=step)
+            with T.span("train.optimizer"):
+                new_params, new_opt = opt_update(
+                    params, grads, state["opt"], lr,
+                    weight_decay=tcfg.weight_decay, step=step)
         train_step.last_tape = rows if runtime is not None else None
         new_state = {"params": new_params, "opt": new_opt, "step": step + 1,
                      "maps": maps}
