@@ -216,19 +216,27 @@ def _write_cache(c, u, start):
     """Copy of cache c [B, Smax, KH, hd] with u [B, S, KH, hd] written at
     rows start[b] .. start[b] + S - 1. Like the JAX dynamic update, the
     start is clamped so the write stays inside the cache."""
+    return _write_rows(c.clone(), u, start)
+
+
+def _write_rows(out, u, start):
+    """u written into the cache `out` in place, as `_write_cache` writes
+    its copy; returns out."""
     B, S = u.shape[:2]
-    st = start.clamp(0, c.shape[1] - S)
-    rows = st[:, None] + torch.arange(S, device=c.device)[None, :]
-    out = c.clone()
-    out[torch.arange(B, device=c.device)[:, None], rows] = u.to(c.dtype)
+    st = start.clamp(0, out.shape[1] - S)
+    rows = st[:, None] + torch.arange(S, device=out.device)[None, :]
+    out[torch.arange(B, device=out.device)[:, None], rows] = u.to(out.dtype)
     return out
 
 
 def attention_block(p, x, positions, cfg: ModelConfig, *, cache=None,
-                    cache_pos=None, cross_kv=None):
+                    cache_pos=None, cross_kv=None, cache_out=None):
     """Full attention sublayer. Modes:
       train/prefill: cache=None (prefill returns fresh kv for caching)
-      decode: cache=(k,v) [B,Smax,KH,hd], cache_pos [B] current length
+      decode: cache=(k,v) [B,Smax,KH,hd], cache_pos [B] current length;
+        with cache_out=(k,v) of the same shapes the new cache is written
+        there (the given rows copied across, then the new ones) and the
+        given cache is only read
       cross: cross_kv=(k,v) [B,Se,KH,hd] precomputed from the encoder (q
         from wq alone: no bias, no rope; new_cache_kv is None)
     Returns (out, new_cache_kv)."""
@@ -246,8 +254,12 @@ def attention_block(p, x, positions, cfg: ModelConfig, *, cache=None,
 
     if cache is not None:
         ck, cv = cache
-        ck = _write_cache(ck, k, cache_pos)
-        cv = _write_cache(cv, v, cache_pos)
+        if cache_out is None:
+            ck = _write_cache(ck, k, cache_pos)
+            cv = _write_cache(cv, v, cache_pos)
+        else:
+            ck = _write_rows(cache_out[0].copy_(ck), k, cache_pos)
+            cv = _write_rows(cache_out[1].copy_(cv), v, cache_pos)
         o = full_attention(q, ck, cv, causal=False, kv_len=cache_pos + S)
         out = (o.reshape(B, S, cfg.num_heads * cfg.hd)
                @ p["wo"].to(x.dtype))

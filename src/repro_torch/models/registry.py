@@ -77,11 +77,29 @@ def prefill_fn(params, batch, cache, cfg: ModelConfig):
                       mode="prefill")
 
 
-def decode_fn(params, tokens, cache, cfg: ModelConfig):
-    """tokens [B,1] -> (logits [B,1,V], cache)."""
+def decode_fn(params, tokens, cache, cfg: ModelConfig, *, cache_out=None):
+    """tokens [B,1] -> (logits [B,1,V], cache). cache_out (the decoder
+    families): a cache shaped like `cache` that the new cache is written
+    into and returned as; `cache` is then only read."""
     if cfg.family == "encdec":
         return ED.decode_step(params, tokens, cache, cfg)
-    return TF.forward(params, tokens, cfg, cache=cache, mode="decode")
+    return TF.forward(params, tokens, cfg, cache=cache, mode="decode",
+                      cache_out=cache_out)
+
+
+def decode_capturable(cfg: ModelConfig) -> bool:
+    """Whether `decode_fn`'s work can be captured in CUDA graphs: the same
+    work at the same addresses every step, nothing built on or read back
+    to the host. The decoder families' attention and mamba mixers, dense
+    and MoE layers qualify; not the encoder-decoder's decode step, nor
+    M-RoPE (`layers.apply_rope` builds its axis table on the host at every
+    call), nor expert parallelism over an active mesh (collectives,
+    `transformer.expert_parallel`), read on every call."""
+    if cfg.family == "encdec" or cfg.rope_kind == "mrope":
+        return False
+    if any(cfg.ffn_kind(j) == "moe" for j in range(cfg.superblock)):
+        return not TF.expert_parallel(cfg)
+    return True
 
 
 def params_from_numpy(tree, device="cuda"):

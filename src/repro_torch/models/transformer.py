@@ -103,23 +103,31 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
 # superblock forward
 # --------------------------------------------------------------------------
 
-def _moe_dispatch(p, x, cfg: ModelConfig):
-    """`moe.apply_moe` by default; expert parallelism over the mesh's
-    'model' axis with REPRO_MOE_EP=1 (needs an active mesh whose 'model'
-    axis divides num_experts), read on every call."""
+def expert_parallel(cfg: ModelConfig) -> bool:
+    """Whether the MoE layers run expert parallelism over the mesh's
+    'model' axis: REPRO_MOE_EP=1 and an active mesh whose 'model' axis
+    divides num_experts, read on every call."""
     import os
     from ..dist.sharding import active_mesh
     mesh = active_mesh()
-    if (os.environ.get("REPRO_MOE_EP", "0") == "1" and mesh is not None
+    return (os.environ.get("REPRO_MOE_EP", "0") == "1" and mesh is not None
             and "model" in mesh.axis_names
-            and cfg.num_experts % mesh.shape["model"] == 0):
+            and cfg.num_experts % mesh.shape["model"] == 0)
+
+
+def _moe_dispatch(p, x, cfg: ModelConfig):
+    """`moe.apply_moe`, or `expert_parallel.apply_moe_ep` where
+    `expert_parallel(cfg)`."""
+    if expert_parallel(cfg):
         from ..dist.expert_parallel import apply_moe_ep
         return apply_moe_ep(p, x, cfg)
     return MOE.apply_moe(p, x, cfg)
 
 
 def _superblock_fwd(p_sb, x, cache_sb, positions, cfg: ModelConfig,
-                    mode: str, cache_pos):
+                    mode: str, cache_pos, out_sb=None):
+    """out_sb (decode): the superblock's rows of the cache the new cache is
+    written into; the new cache returned is then None."""
     new_cache = []
     for j in range(cfg.superblock):
         kind, ffn = cfg.block_kind(j), cfg.ffn_kind(j)
@@ -127,6 +135,7 @@ def _superblock_fwd(p_sb, x, cache_sb, positions, cfg: ModelConfig,
         x = probe_site("block", x, kind=E.KIND_ENTRY)
         h = L.apply_norm(p["norm1"], x, cfg)
         c = cache_sb["blocks"][j] if cache_sb is not None else None
+        o = out_sb["blocks"][j] if out_sb is not None else None
         if kind == "attn":
             if mode == "train":
                 out, _ = L.attention_block(p["attn"], h, positions, cfg)
@@ -139,9 +148,10 @@ def _superblock_fwd(p_sb, x, cache_sb, positions, cfg: ModelConfig,
                 new_cache.append({"k": L._write_cache(c["k"], k_new, start),
                                   "v": L._write_cache(c["v"], v_new, start)})
             else:  # decode
-                out, kv = L.attention_block(p["attn"], h, positions, cfg,
-                                            cache=(c["k"], c["v"]),
-                                            cache_pos=cache_pos)
+                out, kv = L.attention_block(
+                    p["attn"], h, positions, cfg, cache=(c["k"], c["v"]),
+                    cache_pos=cache_pos,
+                    cache_out=None if o is None else (o["k"], o["v"]))
                 new_cache.append({"k": kv[0], "v": kv[1]})
         else:
             if mode == "train":
@@ -151,6 +161,9 @@ def _superblock_fwd(p_sb, x, cache_sb, positions, cfg: ModelConfig,
                                          return_state=True)
             else:
                 out, c = SSM.apply_mamba(p["mamba"], h, cfg, cache=c)
+                if o is not None:
+                    for f in c:
+                        o[f].copy_(c[f])
             new_cache.append(c)
         out = probe_site("attn.out" if kind == "attn" else "ssm.out", out)
         x = x + out
@@ -166,7 +179,7 @@ def _superblock_fwd(p_sb, x, cache_sb, positions, cfg: ModelConfig,
             f = probe_site("ffn.out", f)
             x = x + f
         x = probe_site("block", x, kind=E.KIND_EXIT)
-    return x, new_cache
+    return x, (new_cache if out_sb is None else None)
 
 
 # --------------------------------------------------------------------------
@@ -175,11 +188,14 @@ def _superblock_fwd(p_sb, x, cache_sb, positions, cfg: ModelConfig,
 
 def forward(params, tokens, cfg: ModelConfig, *, embeds=None,
             positions=None, cache=None, mode: str = "train",
-            remat: bool = False):
+            remat: bool = False, cache_out=None):
     """tokens: [B, S_text] int; embeds: [B, S_front, D] modality stub
     (prepended); positions: [B, S], or [B, S, 3] for M-RoPE (default iota,
     or the cache length when decoding, on all three axes for M-RoPE);
-    remat recomputes each superblock's activations in the backward pass. Returns (logits f32 [B, S, V], new_cache|None)."""
+    remat recomputes each superblock's activations in the backward pass;
+    cache_out (decode): a cache shaped like `cache` that the new cache is
+    written into and returned as, `cache` only read. Returns (logits f32
+    [B, S, V], new_cache|None)."""
     x = L.embed(params["embed"], tokens, cfg)
     if embeds is not None:
         x = torch.cat([embeds.to(x.dtype), x], dim=1)
@@ -198,20 +214,25 @@ def forward(params, tokens, cfg: ModelConfig, *, embeds=None,
         else None
 
     def body(x, xs):
-        p_sb, c_sb = xs
+        p_sb, c_sb, *out_sb = xs
         return _superblock_fwd(p_sb, x, c_sb, positions, cfg, mode,
-                               cache_pos)
+                               cache_pos, *out_sb)
 
     if cache is None:
         x, _ = E.probed_scan(lambda c, p_sb: (body(c, (p_sb, None))[0], None),
                              x, params["stack"], remat=remat)
         new_cache = None
     else:
-        x, new_blocks = E.probed_scan(
-            body, x, (params["stack"], {"blocks": cache["blocks"]}),
-            remat=remat)
+        xs = (params["stack"], {"blocks": cache["blocks"]})
+        if cache_out is not None:
+            xs += ({"blocks": cache_out["blocks"]},)
+        x, new_blocks = E.probed_scan(body, x, xs, remat=remat)
         new_pos = cache["pos"] + (S if mode != "train" else 0)
-        new_cache = {"blocks": new_blocks, "pos": new_pos}
+        if cache_out is None:
+            new_cache = {"blocks": new_blocks, "pos": new_pos}
+        else:
+            cache_out["pos"].copy_(new_pos)
+            new_cache = cache_out
 
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.unembed(params["embed"], x, cfg).to(F32)

@@ -50,7 +50,9 @@ class ServeEngine:
                                    self.device)
         self.active: list[Request | None] = [None] * slots
         self.maps = runtime.init_device_maps(self.device) if runtime else {}
-        self._decode = make_decode_step(cfg, runtime)
+        # the engine passes back the cache the step returned, so the step
+        # may replay its model work from CUDA graphs over caches it owns
+        self._decode = make_decode_step(cfg, runtime, graphs=True)
         self.step_count = 0
         self.events = 0               # probe rows collected by decode steps
 

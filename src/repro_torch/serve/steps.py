@@ -11,17 +11,28 @@ from .. import telemetry as T
 from ..configs.base import ModelConfig
 from ..core import events as E, jit as J
 from ..models import registry as MR
+from . import decode_graph as DG
 
 
-def make_decode_step(cfg: ModelConfig, runtime=None, probe_mode=None):
+def make_decode_step(cfg: ModelConfig, runtime=None, probe_mode=None, *,
+                     graphs: bool = False):
     """The decode step. It keeps the last step's event tape and the map
     state it started from on `decode_step.last` (rows, maps_in, step,
     table_gen), so a caller can replay the tape through another probe mode.
     table_gen is the generation of the live table the step ran (None
     without the live lane): a later `sync_live_table` writes the table in
     maps_in in place, and `runtime.live_table_at(table_gen, device)` gives
-    back the one the step ran."""
+    back the one the step ran.
+
+    graphs=True is for a caller that passes back the cache the step
+    returned (`ServeEngine`): where `decode_graph.engages`, the model's
+    work is replayed from CUDA graphs over two caches the step owns, and
+    the step never writes the cache it is given (`serve/decode_graph.py`).
+    The keyed record `decode.graph` counts each call as "capture",
+    "replay" or "eager"."""
     wanted = runtime.wanted_sites() if runtime else set()
+    graphed = DG.DecodeGraphs(cfg, wanted, runtime is not None) \
+        if graphs else None
 
     def decode_step(params, tokens, cache, maps, step: int):
         """tokens [B,1] int; returns (next_token [B], logits, cache, maps)."""
@@ -29,7 +40,12 @@ def make_decode_step(cfg: ModelConfig, runtime=None, probe_mode=None):
             col = E.Collector(wanted) if runtime else None
             with T.span("decode.model"), \
                     col if col is not None else contextlib.nullcontext():
-                logits, cache = MR.decode_fn(params, tokens, cache, cfg)
+                if graphed is not None and DG.engages(cfg, cache):
+                    logits, cache = graphed(params, tokens, cache, col)
+                else:
+                    T.count("decode.graph", "eager")
+                    logits, cache = MR.decode_fn(params, tokens, cache,
+                                                 cfg)
                 if col is not None:
                     E.probe_site("decode.logits", logits)
                     rows = col.take_all_rows(tokens.device)
