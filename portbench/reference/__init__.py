@@ -15,6 +15,11 @@ lower-precision control), and
     loss(params, tokens, labels, m, pr=lowp.FLOAT32) -> mean next-token
                                                          loss
 with its activations recomputed layer by layer in the backward pass.
+It also gives
+    block_leaves(m, j) -> [(path, shape, kind, scale)]
+the leaves of superblock position j after its first norm, each with a
+row a superblock (weights.py draws them), and CHECK_BATCH, the sequences
+the serving check runs through `forward` at once (0: all).
 """
 from __future__ import annotations
 

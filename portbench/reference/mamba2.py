@@ -37,11 +37,12 @@ def _sizes(m):
     return D, di, m.get("ssm_ngroups", 1), m["ssm_state"], di // P, P
 
 
-def block_leaves(m: dict) -> list:
+def block_leaves(m: dict, j: int) -> list:
     """(path in the stacked layer, shape, kind, scale) of a layer's leaves
-    after its norm, in the order the weights are drawn: the mixer's."""
+    after its norm, in the order the weights are drawn: the mixer's.
+    Every layer is alike: the superblock position j is not read."""
     D, di, G, N, H, _ = _sizes(m)
-    L, K = m["num_layers"], m.get("ssm_conv", 4)
+    L, K = m["num_layers"] // m.get("superblock", 1), m.get("ssm_conv", 4)
     conv = di + 2 * G * N
     return [
         (("mamba", "in_proj"), (L, D, 2 * di + 2 * G * N + H), "normal",

@@ -20,11 +20,12 @@ F32 = torch.float32
 CHECK_BATCH = 1
 
 
-def block_leaves(m: dict) -> list:
+def block_leaves(m: dict, j: int) -> list:
     """(path in the stacked layer, shape, kind, scale) of a layer's leaves
     after its first norm, in the order the weights are drawn: the
-    attention projections (and their biases), the second norm, the MLP."""
-    D, L = m["d_model"], m["num_layers"]
+    attention projections (and their biases), the second norm, the MLP.
+    Every layer is alike: the superblock position j is not read."""
+    D, L = m["d_model"], m["num_layers"] // m.get("superblock", 1)
     H, KH = m["num_heads"], m["num_kv_heads"]
     hd = m.get("head_dim") or D // H
     F_ = m["d_ff"]

@@ -20,11 +20,12 @@ counted; admission must have let every request in."""
 from __future__ import annotations
 
 import contextlib
+import math
 
 import numpy as np
 import torch
 
-from . import cell as C, traffic as TR, weights as W
+from . import cell as C, pattern as P, traffic as TR, weights as W
 
 
 class WindowClosed(Exception):
@@ -263,41 +264,40 @@ def run(cell: C.Cell, seed: int, seconds: float, trace: bool, device,
     return run, values, len(started) + rejected, rejected
 
 
-def site_events(config: dict) -> dict:
-    """Events a decode step collects at each probe site, from the
-    configuration's "probe_sites": a number, or the name of a key of its
-    model section ("num_layers": one a layer)."""
-    m = config["model"]
-    return {t: n if isinstance(n, int) else m[n]
-            for t, n in config["probe_sites"].items()}
-
-
 def events_per_step(probes: dict, config: dict) -> int:
     """Event rows a decode step collects: the events of every site a
     probe is attached at (`probes`: map name -> (kind, site))."""
-    per_site = site_events(config)
-    return sum(per_site[t] for t in {t for _, t in probes.values()})
+    return sum(math.prod(P.site_layout(config, t))
+               for t in {t for _, t in probes.values()})
 
 
 def map_errors(maps: dict, probes: dict, steps: int, config: dict) -> dict:
     """Entries of the serving maps that differ from what `steps` probed
-    decode steps must leave (reference/probes.py): a counter (ARRAY or
-    HASH keyed by the event's index) holds `steps` at each index of its
-    site, a histogram one entry an event, a ring one record an event."""
+    decode steps must leave (reference/probes.py). A map the
+    configuration's "map_expect" names must hold that number: an ARRAY or
+    HASH map at key 0 and nothing elsewhere, a histogram in all, a ring
+    as its records; one the run does not produce counts as one counter
+    entry in error. Every other map is held by its site's events
+    (pattern.site_layout): a counter (ARRAY or HASH keyed by the event's
+    layer id) holds `steps` times the events at each id of its site, a
+    histogram one entry an event, a ring one record an event."""
     from .reference import probes as RP
-    per_site = site_events(config)
-    out = {"counter_errors": 0, "hist_count_error": 0, "ring_head_error": 0}
+    expect = config.get("map_expect", {})
+    out = {"counter_errors": sum(1 for name in expect if name not in maps),
+           "hist_count_error": 0, "ring_head_error": 0}
     for name, (kind, site) in probes.items():
-        n = per_site[site]
+        ids, per_id = P.site_layout(config, site)
+        if name in expect:
+            ids, per_id, total = 1, expect[name], expect[name]
+        else:
+            per_id, total = steps * per_id, steps * ids * per_id
         if kind in ("array", "hash"):
-            out["counter_errors"] += RP.counter_errors(maps[name], steps, n,
-                                                       kind)
+            out["counter_errors"] += RP.counter_errors(maps[name], per_id,
+                                                       ids, kind)
         elif kind == "log2hist":
-            out["hist_count_error"] += RP.hist_total_error(maps[name],
-                                                           steps * n)
+            out["hist_count_error"] += RP.hist_total_error(maps[name], total)
         elif kind == "ringbuf":
-            out["ring_head_error"] += RP.ring_head_error(maps[name],
-                                                         steps * n)
+            out["ring_head_error"] += RP.ring_head_error(maps[name], total)
         else:
             raise ValueError(f"no expectation for a {kind} map ({name})")
     return out

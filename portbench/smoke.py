@@ -1,7 +1,9 @@
 """Cells at smoke width for the CPU tests: the cells of BENCHMARK.json
-with their configuration cut to two narrow layers and a small vocabulary
-and their mix to a few slots and short sequences. Every other setting,
-the limits among them, is the cell's own.
+with their configuration cut by its own "smoke" section (each of its
+sections' keys set over the configuration's: the model's widths, depth
+and vocabulary, and where the cut needs it its probe_sites and
+program_limits) and their mix to a few slots and short sequences. Every
+other setting, the limits among them, is the cell's own.
 
 HELD_BACK are cells whose files are here but which BENCHMARK.json leaves
 out until the program can run their configuration as it is stated
@@ -38,14 +40,8 @@ def any_cell(name: str) -> C.Cell:
 
 def small_cell(name: str) -> C.Cell:
     c = any_cell(name)
-    m = c.config["model"]
-    if c.config["family"] == "ssm":
-        m.update(num_layers=2, d_model=64, ssm_state=16, ssm_headdim=16,
-                 ssm_chunk=8, vocab_size=512)
-        c.config["program_limits"]["prefill_multiple_above"] = 8
-    else:
-        m.update(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
-                 head_dim=16, d_ff=128, vocab_size=512)
+    for section, keys in c.config["smoke"].items():
+        c.config.setdefault(section, {}).update(keys)
     if c.traffic["mode"] == "serve":
         c.traffic.update(slots=4, max_seq=128, pool=256, block=32,
                          warm_iterations=3, trace_iterations=4,

@@ -1,17 +1,16 @@
 """The program's launch records and spans against the harness's own
 counts and ranges, with no card: the counts from the program's launch
 keys (counts/keys.py) against the counts from the launch's tensors, and a
-traced run of each mode at smoke width on the CPU with telemetry on over
-the traced window, its records and spans held against the benchmark's
-counts and ranges."""
+traced run of each mode at smoke width on the CPU, which turns telemetry
+on over the traced window, its records and spans held against the
+benchmark's counts and ranges, and the span readers reading them."""
 import time
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from portbench import (cell as C, profiling as P, serve_cell,  # noqa: E402
-                       smoke, train_cell)
+from portbench import cell as C, serve_cell, smoke, train_cell  # noqa: E402
 from portbench.counts import keys as K, probes as PB  # noqa: E402
 
 
@@ -70,45 +69,11 @@ def test_flash_launches_and_serving_flops_from_the_records():
 
 # ------------------------------------------------- a traced run on the CPU
 
-class _KeptTrace(P.Trace):
-    """profiling.Trace that also keeps the host side of the program's
-    spans: {name: [(start, end)]}, without the "repro_torch." prefix."""
-
-    def __init__(self, kineto_events):
-        from repro_torch.telemetry import PREFIX
-        events = list(kineto_events)
-        super().__init__(events)
-        self.spans: dict[str, list] = {}
-        for e in sorted(events, key=lambda e: e.start_ns()):
-            if e.name().startswith(PREFIX):
-                self.spans.setdefault(e.name()[len(PREFIX):], []).append(
-                    (e.start_ns(), e.end_ns()))
-
-
-class _RecordingWindow(P.Window):
-    """profiling.Window with the port's telemetry on over it; its trace
-    carries `telemetry.records()`."""
-
-    def start(self):
-        from repro_torch import telemetry
-        self._recording = telemetry.recording()
-        self._recording.__enter__()
-        super().start()
-
-    def stop(self):
-        from repro_torch import telemetry
-        trace = super().stop()
-        self._recording.__exit__(None, None, None)
-        trace.records = telemetry.records()
-        return trace
-
-
-def _traced(name, monkeypatch):
-    """A traced run of the cell at smoke width on the CPU with telemetry
-    on over the traced window: serving traces its first 4 iterations of a
-    2 s window; training its first step, whatever the window holds."""
-    monkeypatch.setattr(P, "Window", _RecordingWindow)
-    monkeypatch.setattr(P, "Trace", _KeptTrace)
+def _traced(name):
+    """A traced run of the cell at smoke width on the CPU (profiling.Window
+    turns the port's telemetry on over the traced window): serving traces
+    its first 4 iterations of a 2 s window; training its first step,
+    whatever the window holds."""
     cell = smoke.small_cell(name)
     cell.config["model"]["dtype"] = "float32"
     cell.config["train"]["compute_dtype"] = "float32"
@@ -126,9 +91,8 @@ def _inside(inner, outer) -> bool:
     return all(any(a <= s and e <= b for a, b in outer) for s, e in inner)
 
 
-def test_a_traced_serving_run_has_spans_and_records_beside_its_ranges(
-        monkeypatch):
-    run = _traced("qwen2-0.5b.serve_chat", monkeypatch)
+def test_a_traced_serving_run_has_spans_and_records_beside_its_ranges():
+    run = _traced("qwen2-0.5b.serve_chat")
     t = run.trace
     spans = t.spans
     assert len(spans["decode.step"]) == t.calls("decode") > 0
@@ -150,10 +114,23 @@ def test_a_traced_serving_run_has_spans_and_records_beside_its_ranges(
                       trace=t, traced_prefills=prefills,
                       traced_decode_positions=positions)
     assert mfu(recounted) == mfu(run)
+    # the span readers: every emit lies in the model's span of a decode
+    # step, whose host time it is taken out of
+    assert len(t.nested("probe.emit", "decode.model")) == \
+        len(t.nested("probe.emit", "decode.step")) == \
+        len(spans["probe.emit"])
+    model = C.metric_reader("decode_model_host_ms.serve")(run)
+    assert 0 < model < 1e3 * t.host_s("decode.model") / t.calls("decode")
+    assert 0 < C.metric_reader("emit_host_us.serve")(run) < 1e6 * \
+        t.host_s("decode.step") / t.calls("decode")
+    slot_write = C.metric_reader("slot_write_ms.serve")(run)
+    assert (slot_write is None) == (not run.traced_prefills)
+    assert t.host_s("decode.step") <= t.host_s("decode")
+    assert "idle_gaps_by_span" in t.breakdown()
 
 
-def test_a_traced_training_run_has_spans_beside_its_ranges(monkeypatch):
-    run = _traced("qwen2-0.5b.train_4k", monkeypatch)
+def test_a_traced_training_run_has_spans_beside_its_ranges():
+    run = _traced("qwen2-0.5b.train_4k")
     spans = run.trace.spans
     steps = len(spans["train.step"])
     assert steps == run.traced_steps == 1
@@ -164,3 +141,7 @@ def test_a_traced_training_run_has_spans_beside_its_ranges(monkeypatch):
     assert len(spans["train.optimizer"]) == steps
     assert len(spans["model.loss"]) == 2 * steps
     assert _inside(spans["model.loss"], spans["train.forward"])
+    # no device operation on the CPU: the device readers find nothing
+    for name in ("optimizer_device_ms.train", "loss_device_ms.train",
+                 "forward_idle_ms.train"):
+        assert C.metric_reader(name)(run) is None, name

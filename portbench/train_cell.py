@@ -21,7 +21,7 @@ import statistics
 import numpy as np
 import torch
 
-from . import cell as C, traffic as TR, weights as W
+from . import cell as C, pattern as P, traffic as TR, weights as W
 from .reference import probes as RP
 from .reference.train import flat, train_readings
 
@@ -198,11 +198,11 @@ def run(cell: C.Cell, seed: int, seconds: float, trace: bool, device,
             ref, np.asarray(fx, np.int64), low["grad_norms"],
             low["change_norms"]).items()})
     del params, batches
-    L_ = m["num_layers"]
+    # every layer's block entry counts at its superblock's id
+    ids, per_id = P.stacked(m), n_mb * n_steps * P.superblock(m)
     values["counter_errors"] = (
-        RP.counter_errors(maps["tr_layer_counts"], n_mb * n_steps, L_,
-                          "array")
-        + RP.counter_errors(maps["tr_key_hash"], n_mb * n_steps, L_, "hash"))
+        RP.counter_errors(maps["tr_layer_counts"], per_id, ids, "array")
+        + RP.counter_errors(maps["tr_key_hash"], per_id, ids, "hash"))
     values["hist_count_error"] = RP.hist_total_error(maps["tr_gnorm_hist"],
                                                      n_steps)
     values["ring_head_error"] = RP.ring_head_error(maps["tr_loss_rb"],

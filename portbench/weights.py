@@ -5,7 +5,8 @@ device, seeded from the run's seed and the leaf's index, so a single leaf
 can be made again later (the training check compares each leaf's change
 against its first value) without keeping a copy. Leaves are float32, the
 type the port keeps its parameters in; layers are stacked on dim 0 as
-`models/transformer.py` stacks them.
+`models/transformer.py` stacks them: one tree a superblock position, each
+leaf with a row a superblock (pattern.py).
 
 Both sides get these tensors: the port runs on them, the plain reference
 reads the same tree by its keys.
@@ -16,7 +17,7 @@ import math
 
 import torch
 
-from . import reference as R
+from . import pattern, reference as R
 from .reference.train import unflat
 
 F32 = torch.float32
@@ -34,17 +35,25 @@ def _vpad(m: dict) -> int:
 
 def leaf_specs(config: dict) -> list:
     """(path, shape, kind, scale) of every leaf of the model the
-    configuration describes, in a fixed order: the embedding, the first
-    norm, the leaves of the family's layer (its reference module's
-    `block_leaves`), the final norm."""
+    configuration describes, in a fixed order: the embedding; for each
+    superblock position j, its first norm and the leaves its reference
+    module's `block_leaves(m, j)` gives; the final norm; and the output
+    head where the embedding is not tied. The leaf's index in this list
+    seeds its draw, so a list that keeps its order keeps every seed's
+    weights."""
     m = config["model"]
-    D, L = m["d_model"], m["num_layers"]
-    blk = ("stack", "blocks", 0)
-    specs = [(("embed", "embedding"), (_vpad(m), D), "normal", 0.02),
-             (blk + ("norm1", "scale"), (L, D), "one_plus", 0.05)]
-    specs += [(blk + path, shape, kind, scale) for path, shape, kind, scale
-              in R.model(config["reference"]).block_leaves(m)]
+    D = m["d_model"]
+    ref = R.model(config["reference"])
+    specs = [(("embed", "embedding"), (_vpad(m), D), "normal", 0.02)]
+    for j in range(pattern.superblock(m)):
+        blk = ("stack", "blocks", j)
+        specs.append((blk + ("norm1", "scale"), (pattern.stacked(m), D),
+                      "one_plus", 0.05))
+        specs += [(blk + path, shape, kind, scale) for path, shape, kind,
+                  scale in ref.block_leaves(m, j)]
     specs.append((("final_norm", "scale"), (D,), "one_plus", 0.05))
+    if not m.get("tie_embeddings", False):
+        specs.append((("embed", "lm_head"), (D, _vpad(m)), "normal", 0.02))
     return specs
 
 
