@@ -35,7 +35,9 @@ class ModelConfig:
     moe_every: int = 1          # layer i uses MoE iff i % moe_every == moe_offset
     moe_offset: int = 0
     moe_shared: bool = False    # always-on shared expert alongside routed
+    moe_shared_d_ff: int = 0    # shared expert hidden dim (0 -> moe_d_ff)
     capacity_factor: float = 1.25
+    moe_dropless: bool = False  # capacity = tokens: no assignment drops
     # ---- SSM (mamba2 / SSD)
     ssm_state: int = 0
     ssm_expand: int = 2
@@ -52,6 +54,12 @@ class ModelConfig:
     # ---- modality frontend stub (vlm/audio): inputs arrive as embeddings
     frontend: str = "none"      # none | vision | audio
     frontend_tokens: int = 0    # prefix positions fed as embeddings
+    # ---- scalars on the residual and attention paths (granite): 1 (0 for
+    # the attention scale) changes nothing
+    embedding_multiplier: float = 1.0   # the embedding's output, times
+    residual_multiplier: float = 1.0    # each sublayer's output, times
+    attention_multiplier: float = 0.0   # softmax scale (0 -> 1/sqrt(hd))
+    logits_scaling: float = 1.0         # the logits, divided by
     # ---- numerics
     dtype: str = "bfloat16"
     # superblock: scan unit = this many consecutive layers (hetero patterns)
@@ -82,6 +90,10 @@ class ModelConfig:
             return "moe"
         return "dense"
 
+    @property
+    def shared_d_ff(self) -> int:
+        return self.moe_shared_d_ff or self.moe_d_ff
+
     def d_inner(self) -> int:
         return self.ssm_expand * self.d_model
 
@@ -96,7 +108,7 @@ class ModelConfig:
         if self.qkv_bias:
             attn += (H + 2 * KH) * hd
         dense_ffn = 3 * D * self.d_ff if self.act == "swiglu" else 2 * D * self.d_ff
-        shared = 3 * D * self.moe_d_ff if self.moe_shared else 0
+        shared = 3 * D * self.shared_d_ff if self.moe_shared else 0
         moe_ffn = (self.num_experts * 3 * D * self.moe_d_ff
                    + D * self.num_experts + shared)
         act_moe_ffn = (self.experts_per_token * 3 * D * self.moe_d_ff

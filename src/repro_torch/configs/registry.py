@@ -5,10 +5,10 @@ from __future__ import annotations
 import dataclasses
 
 from .base import ModelConfig
-from . import (jamba_v0_1_52b, kimi_k2_1t_a32b, llama3_2_1b,
-               llama4_scout_17b_a16e, mamba2_780m, phi4_mini_3_8b,
-               qwen2_0_5b, qwen2_vl_72b, seamless_m4t_medium,
-               starcoder2_15b)
+from . import (granite_4_0_h_small, jamba_v0_1_52b, kimi_k2_1t_a32b,
+               llama3_2_1b, llama4_scout_17b_a16e, mamba2_780m,
+               phi4_mini_3_8b, qwen2_0_5b, qwen2_vl_72b,
+               seamless_m4t_medium, starcoder2_15b)
 
 ARCHS: dict[str, ModelConfig] = {
     "qwen2-0.5b": qwen2_0_5b.CONFIG,
@@ -22,12 +22,19 @@ ARCHS: dict[str, ModelConfig] = {
     "kimi-k2-1t-a32b": kimi_k2_1t_a32b.CONFIG,
     "jamba-v0.1-52b": jamba_v0_1_52b.CONFIG,
 }
+# presets of the port alone: the JAX package has no counterpart, so the
+# tests that hold every arch of ARCHS against it leave these out
+PORT_ARCHS: dict[str, ModelConfig] = {
+    "granite-4.0-h-small": granite_4_0_h_small.CONFIG,
+}
 
 
 def get(arch: str) -> ModelConfig:
-    if arch not in ARCHS:
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
-    return ARCHS[arch]
+    cfg = ARCHS.get(arch) or PORT_ARCHS.get(arch)
+    if cfg is None:
+        raise KeyError(f"unknown arch {arch!r}; known: "
+                       f"{sorted({**ARCHS, **PORT_ARCHS})}")
+    return cfg
 
 
 def smoke(arch: str) -> ModelConfig:
@@ -47,7 +54,7 @@ def smoke(arch: str) -> ModelConfig:
     if cfg.num_experts:
         r.update(num_experts=4,
                  experts_per_token=min(2, cfg.experts_per_token),
-                 moe_d_ff=128)
+                 moe_d_ff=128, moe_shared_d_ff=min(cfg.moe_shared_d_ff, 256))
     if cfg.family == "encdec":
         r.update(enc_layers=2, dec_layers=2, num_layers=0, num_kv_heads=4)
     else:

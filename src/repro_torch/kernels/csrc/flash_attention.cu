@@ -422,9 +422,16 @@ constexpr size_t dq_smem() {
   return sizeof(float) * (4 * kT * (HD + 1) + kT * kSP + 2 * kT);
 }
 
+// The softmax scale: the caller's, or 1/sqrt(hd) where it passes 0.
+template <int HD>
+float softmax_scale(float scale) {
+  return scale > 0.f ? scale : 1.0f / sqrtf((float)HD);
+}
+
 template <int HD>
 int fwd_f32(const void* q, const void* k, const void* v, void* o, float* lse,
-        int BH, int BKH, int Sq, int Skv, int causal, cudaStream_t st) {
+        int BH, int BKH, int Sq, int Skv, int causal, float scale,
+        cudaStream_t st) {
   auto kern = flash_fwd_kernel<HD>;
   const size_t sm = fwd_smem<HD>();
   cudaError_t e = cudaFuncSetAttribute(
@@ -433,17 +440,17 @@ int fwd_f32(const void* q, const void* k, const void* v, void* o, float* lse,
   const dim3 grid((Sq + kT - 1) / kT, BH);
   kern<<<grid, kThreads, sm, st>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, Sq, Skv, BH / BKH,
-      causal, 1.0f / sqrtf((float)HD));
+      causal, softmax_scale<HD>(scale));
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int bwd_f32(const void* q, const void* k, const void* v, const void* o,
         const float* lse, const void* dout, float* delta, void* dq, void* dk,
-        void* dv, int BH, int BKH, int Sq, int Skv, int causal,
+        void* dv, int BH, int BKH, int Sq, int Skv, int causal, float sc,
         cudaStream_t st) {
   const int rep = BH / BKH;
-  const float scale = 1.0f / sqrtf((float)HD);
+  const float scale = softmax_scale<HD>(sc);
   const long long rows = (long long)BH * Sq;
   flash_delta_kernel<float, HD><<<(unsigned)((rows + kThreads / 32 - 1) /
                                          (kThreads / 32)),
@@ -482,7 +489,7 @@ bool aligned16(std::initializer_list<const void*> ps) {
 template <int HD>
 int fwd_bf16(const void* q, const void* k, const void* v, void* o,
              float* lse, int BH, int BKH, int Sq, int Skv, int causal,
-             cudaStream_t st) {
+             float scale, cudaStream_t st) {
   if (!aligned16({q, k, v, o})) return (int)cudaErrorMisalignedAddress;
   auto kern = sm90::fwd_kernel<HD>;
   constexpr int sm = sm90::fwd_smem<HD>();
@@ -492,7 +499,7 @@ int fwd_bf16(const void* q, const void* k, const void* v, void* o,
   kern<<<dim3((Sq + kT - 1) / kT, BH), sm90::kWG, sm, st>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)o, lse, Sq, Skv, BH / BKH,
-      causal, 1.0f / sqrtf((float)HD));
+      causal, softmax_scale<HD>(scale));
   return (int)cudaGetLastError();
 }
 
@@ -500,12 +507,12 @@ template <int HD>
 int bwd_bf16(const void* q, const void* k, const void* v, const void* o,
              const float* lse, const void* dout, float* delta, void* dq,
              void* dk, void* dv, int BH, int BKH, int Sq, int Skv,
-             int causal, cudaStream_t st) {
+             int causal, float sc, cudaStream_t st) {
   using bf = __nv_bfloat16;
   if (!aligned16({q, k, v, dout, dq, dk, dv}))
     return (int)cudaErrorMisalignedAddress;
   const int rep = BH / BKH;
-  const float scale = 1.0f / sqrtf((float)HD);
+  const float scale = softmax_scale<HD>(sc);
   const long long rows = (long long)BH * Sq;
   flash_delta_kernel<bf, HD><<<(unsigned)((rows + kThreads / 32 - 1) /
                                           (kThreads / 32)),
@@ -552,18 +559,18 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* o,
 
 // q [BH, Sq, hd], k/v [BKH, Skv, hd] -> o [BH, Sq, hd], lse f32 [BH, Sq].
 // hd in {16, 32, 64, 128}; BH a multiple of BKH; bf16 pointers 16-byte
-// aligned. Returns a cudaError_t.
+// aligned; scale the softmax's (0: 1/sqrt(hd)). Returns a cudaError_t.
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, float* lse, int bf16, int BH,
                                int BKH, int Sq, int Skv, int hd, int causal,
-                               void* stream) {
+                               float scale, void* stream) {
   if (BKH <= 0 || BH % BKH != 0 || Sq <= 0 || Skv <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define REPRO_FWD(HD) \
-  fwd_f32<HD>(q, k, v, o, lse, BH, BKH, Sq, Skv, causal, st)
+  fwd_f32<HD>(q, k, v, o, lse, BH, BKH, Sq, Skv, causal, scale, st)
 #define REPRO_FWD_BF16(HD) \
-  fwd_bf16<HD>(q, k, v, o, lse, BH, BKH, Sq, Skv, causal, st)
+  fwd_bf16<HD>(q, k, v, o, lse, BH, BKH, Sq, Skv, causal, scale, st)
   REPRO_FLASH_DISPATCH(REPRO_FWD, REPRO_FWD_BF16)
 #undef REPRO_FWD
 #undef REPRO_FWD_BF16
@@ -577,16 +584,16 @@ extern "C" int repro_flash_bwd(const void* q, const void* k, const void* v,
                                const void* dout, float* delta, void* dq,
                                void* dk, void* dv, int bf16, int BH, int BKH,
                                int Sq, int Skv, int hd, int causal,
-                               void* stream) {
+                               float scale, void* stream) {
   if (BKH <= 0 || BH % BKH != 0 || Sq <= 0 || Skv <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define REPRO_BWD(HD)                                                       \
   bwd_f32<HD>(q, k, v, o, lse, dout, delta, dq, dk, dv, BH, BKH, Sq, Skv,   \
-              causal, st)
+              causal, scale, st)
 #define REPRO_BWD_BF16(HD)                                                  \
   bwd_bf16<HD>(q, k, v, o, lse, dout, delta, dq, dk, dv, BH, BKH, Sq, Skv,  \
-               causal, st)
+               causal, scale, st)
   REPRO_FLASH_DISPATCH(REPRO_BWD, REPRO_BWD_BF16)
 #undef REPRO_BWD
 #undef REPRO_BWD_BF16

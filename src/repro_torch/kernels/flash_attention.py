@@ -76,9 +76,9 @@ def route(dtype) -> str:
 
 def _fn(symbol: str):
     if symbol not in _FNS:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        args = {"repro_flash_fwd": [p] * 5 + [i] * 7 + [p],
-                "repro_flash_bwd": [p] * 10 + [i] * 7 + [p]}[symbol]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        args = {"repro_flash_fwd": [p] * 5 + [i] * 7 + [f, p],
+                "repro_flash_bwd": [p] * 10 + [i] * 7 + [f, p]}[symbol]
         _FNS[symbol] = build.function("flash_attention", symbol, args)
     return _FNS[symbol]
 
@@ -113,8 +113,9 @@ def _require_aligned(t, name: str) -> None:
                          "16-byte boundary")
 
 
-def flash_fwd_cuda(q, k, v, causal: bool = True):
-    """Launch the forward kernel. Returns (o like q, lse f32 [BH, Sq])."""
+def flash_fwd_cuda(q, k, v, causal: bool = True, scale: float = 0.0):
+    """Launch the forward kernel; scale is the softmax's (0: 1/sqrt(hd)).
+    Returns (o like q, lse f32 [BH, Sq])."""
     global FWD_LAUNCHES
     BH, BKH, Sq, Skv, hd, bf16 = _check(q, k, v)
     o = torch.empty_like(q)
@@ -123,7 +124,7 @@ def flash_fwd_cuda(q, k, v, causal: bool = True):
         rc = _fn("repro_flash_fwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), bf16, BH, BKH, Sq, Skv, hd, int(causal),
-            build.stream_ptr(q.device))
+            float(scale), build.stream_ptr(q.device))
     build.check(rc, "flash_fwd")
     FWD_LAUNCHES += 1
     if telemetry.on():
@@ -131,9 +132,10 @@ def flash_fwd_cuda(q, k, v, causal: bool = True):
     return o, lse
 
 
-def flash_bwd_cuda(q, k, v, o, lse, do, causal: bool = True):
-    """Launch the backward kernels (delta, dkv, dq). Returns (dq, dk, dv)
-    in the inputs' type."""
+def flash_bwd_cuda(q, k, v, o, lse, do, causal: bool = True,
+                   scale: float = 0.0):
+    """Launch the backward kernels (delta, dkv, dq) for the forward at
+    `scale`. Returns (dq, dk, dv) in the inputs' type."""
     global BWD_LAUNCHES
     BH, BKH, Sq, Skv, hd, bf16 = _check(q, k, v)
     build.require(o, "flash attention o", q.dtype, 3, q.device)
@@ -153,7 +155,7 @@ def flash_bwd_cuda(q, k, v, o, lse, do, causal: bool = True):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), bf16, BH, BKH, Sq, Skv, hd,
-            int(causal), build.stream_ptr(q.device))
+            int(causal), float(scale), build.stream_ptr(q.device))
     build.check(rc, "flash_bwd")
     BWD_LAUNCHES += 1
     if telemetry.on():
@@ -161,17 +163,21 @@ def flash_bwd_cuda(q, k, v, o, lse, do, causal: bool = True):
     return dq, dk, dv
 
 
-def _flash_fwd(q, k, v, causal: bool):
+# The launchers are called with a scale only where it is not the default:
+# the benchmark's training cell wraps `flash_fwd_cuda(q, k, v, causal)` and
+# `flash_bwd_cuda(q, k, v, o, lse, do, causal)` to count their launches.
+def _flash_fwd(q, k, v, causal: bool, scale: float = 0.0):
     if build.on_card(q, "flash attention"):
-        return flash_fwd_cuda(q, k, v, causal)
-    return ref.flash_fwd(q, k, v, causal, q.shape[0] // k.shape[0])
+        return flash_fwd_cuda(q, k, v, causal, *((scale,) if scale else ()))
+    return ref.flash_fwd(q, k, v, causal, q.shape[0] // k.shape[0], scale)
 
 
-def _flash_bwd(q, k, v, o, lse, do, causal: bool):
+def _flash_bwd(q, k, v, o, lse, do, causal: bool, scale: float = 0.0):
     if build.on_card(q, "flash attention"):
-        return flash_bwd_cuda(q, k, v, o, lse, do, causal)
+        return flash_bwd_cuda(q, k, v, o, lse, do, causal,
+                              *((scale,) if scale else ()))
     return ref.flash_bwd(q, k, v, o, lse, do, causal,
-                         q.shape[0] // k.shape[0])
+                         q.shape[0] // k.shape[0], scale)
 
 
 # ---- the custom operators: the same functions behind the dispatcher, with
@@ -181,42 +187,44 @@ Tensor = torch.Tensor
 
 @torch.library.custom_op("repro_torch::flash_fwd", mutates_args=(),
                          device_types=("cpu", "cuda"))
-def _flash_fwd_op(q: Tensor, k: Tensor, v: Tensor,
-                  causal: bool) -> tuple[Tensor, Tensor]:
-    return tuple(_flash_fwd(q, k, v, causal))
+def _flash_fwd_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                  scale: float = 0.0) -> tuple[Tensor, Tensor]:
+    return tuple(_flash_fwd(q, k, v, causal, scale))
 
 
 @_flash_fwd_op.register_fake
-def _(q, k, v, causal):
+def _(q, k, v, causal, scale=0.0):
     return torch.empty_like(q), q.new_empty(q.shape[:2], dtype=torch.float32)
 
 
 @torch.library.custom_op("repro_torch::flash_bwd", mutates_args=(),
                          device_types=("cpu", "cuda"))
 def _flash_bwd_op(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
-                  do: Tensor, causal: bool) -> tuple[Tensor, Tensor, Tensor]:
-    return tuple(_flash_bwd(q, k, v, o, lse, do, causal))
+                  do: Tensor, causal: bool,
+                  scale: float = 0.0) -> tuple[Tensor, Tensor, Tensor]:
+    return tuple(_flash_bwd(q, k, v, o, lse, do, causal, scale))
 
 
 @_flash_bwd_op.register_fake
-def _(q, k, v, o, lse, do, causal):
+def _(q, k, v, o, lse, do, causal, scale=0.0):
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 class FlashAttention(torch.autograd.Function):
-    """o = attention(q, k, v) in the kernel layout, differentiable. Saves
-    q, k, v, o and lse; the backward returns dq, dk, dv in the inputs'
-    types, as `_fa_fwd`/`_fa_bwd` do. A CUDA tensor launches the kernels,
-    a CPU tensor runs the plain versions; while tracing, both go through
+    """o = attention(q, k, v) in the kernel layout, differentiable, at the
+    softmax scale `scale` (0: 1/sqrt(hd)). Saves q, k, v, o and lse; the
+    backward returns dq, dk, dv in the inputs' types, as `_fa_fwd`/`_fa_bwd`
+    do. A CUDA tensor launches the kernels, a CPU tensor runs the plain
+    versions; while tracing, both go through
     `torch.ops.repro_torch.flash_fwd`/`flash_bwd`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool = True):
+    def forward(ctx, q, k, v, causal: bool = True, scale: float = 0.0):
         if tracing():
-            o, lse = torch.ops.repro_torch.flash_fwd(q, k, v, causal)
+            o, lse = torch.ops.repro_torch.flash_fwd(q, k, v, causal, scale)
         else:
-            o, lse = _flash_fwd(q, k, v, causal)
-        ctx.causal = causal
+            o, lse = _flash_fwd(q, k, v, causal, scale)
+        ctx.causal, ctx.scale = causal, scale
         ctx.save_for_backward(q, k, v, o, lse)
         return o
 
@@ -226,7 +234,8 @@ class FlashAttention(torch.autograd.Function):
         do = do.to(q.dtype).contiguous()
         if tracing():
             dq, dk, dv = torch.ops.repro_torch.flash_bwd(q, k, v, o, lse, do,
-                                                         ctx.causal)
+                                                         ctx.causal, ctx.scale)
         else:
-            dq, dk, dv = _flash_bwd(q, k, v, o, lse, do, ctx.causal)
-        return dq, dk, dv, None
+            dq, dk, dv = _flash_bwd(q, k, v, o, lse, do, ctx.causal,
+                                    ctx.scale)
+        return dq, dk, dv, None, None

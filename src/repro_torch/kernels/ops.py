@@ -165,10 +165,11 @@ def table_interp_run(spec_key, table, rows, maps, aux, *,
                      want_r0=want_r0)
 
 
-def flash_attention(q, k, v, causal: bool = True):
-    """GQA attention, causal or not, on q [B, S, H, hd], k and v [B, S,
-    KH, hd]; returns o [B, S, H, hd] in q's type, differentiable. The inputs go to
-    the kernel layout (q head b*H + h reads kv head b*KH + h // (H // KH),
+def flash_attention(q, k, v, causal: bool = True, scale=None):
+    """GQA attention, causal or not, at the softmax scale `scale` (None:
+    1/sqrt(hd)), on q [B, S, H, hd], k and v [B, S, KH, hd]; returns o
+    [B, S, H, hd] in q's type, differentiable. The inputs go to the kernel
+    layout (q head b*H + h reads kv head b*KH + h // (H // KH),
     the grouping of `models.layers._grouped`) and through
     `FlashAttention`: the kernels for a CUDA tensor, the plain versions for
     a CPU tensor."""
@@ -177,7 +178,7 @@ def flash_attention(q, k, v, causal: bool = True):
     qf = q.permute(0, 2, 1, 3).reshape(B * H, Sq, hd).contiguous()
     kf = k.permute(0, 2, 1, 3).reshape(B * KH, Skv, hd).contiguous()
     vf = v.permute(0, 2, 1, 3).reshape(B * KH, Skv, hd).contiguous()
-    o = fa.FlashAttention.apply(qf, kf, vf, causal)
+    o = fa.FlashAttention.apply(qf, kf, vf, causal, scale or 0.0)
     return o.reshape(B, H, Sq, hd).permute(0, 2, 1, 3)
 
 

@@ -185,12 +185,13 @@ def _scores(qc, ke, q0, causal, scale):
     return s
 
 
-def flash_fwd(q, k, v, causal=True, rep=1):
+def flash_fwd(q, k, v, causal=True, rep=1, scale=0.0):
     """q [BH, Sq, hd]; k, v [BH // rep, Skv, hd]. Returns (o like q,
     lse f32 [BH, Sq]): the arithmetic of the Pallas forward body in f32,
-    with the softmax of each row taken over all its keys at once."""
+    with the softmax of each row taken over all its keys at once. scale:
+    the softmax's (0: 1/sqrt(hd))."""
     BH, Sq, hd = q.shape
-    scale = 1.0 / math.sqrt(hd)
+    scale = scale or 1.0 / math.sqrt(hd)
     ke, ve = _kv_per_q_head(k, rep), _kv_per_q_head(v, rep)
     o = torch.empty_like(q)
     lse = torch.empty((BH, Sq), dtype=F32, device=q.device)
@@ -205,14 +206,14 @@ def flash_fwd(q, k, v, causal=True, rep=1):
     return o, lse
 
 
-def flash_bwd(q, k, v, o, lse, do, causal=True, rep=1):
+def flash_bwd(q, k, v, o, lse, do, causal=True, rep=1, scale=0.0):
     """Gradients (dq, dk, dv) of the forward above for the output gradient
     `do`, in the inputs' types: p from `lse`, `delta = sum(do * o)` in f32
     over the stored o, dk and dv per q head summed over the rep group, as
     `flash_bwd` of the Pallas package does."""
     BH, Sq, hd = q.shape
     BKH, Skv, _ = k.shape
-    scale = 1.0 / math.sqrt(hd)
+    scale = scale or 1.0 / math.sqrt(hd)
     delta = (do.to(F32) * o.to(F32)).sum(dim=-1)            # [BH, Sq]
     ke, ve = _kv_per_q_head(k, rep), _kv_per_q_head(v, rep)
     dq = torch.empty_like(q)

@@ -143,15 +143,16 @@ def _grouped(q, KH):
     return q.reshape(B, S, KH, H // KH, hd)
 
 
-def full_attention(q, k, v, *, causal, kv_len=None):
+def full_attention(q, k, v, *, causal, kv_len=None, scale=None):
     """Small-S / decode path. q: [B,Sq,H,hd]; k,v: [B,Skv,KH,hd].
-    kv_len: [B] valid cache length mask (decode)."""
+    kv_len: [B] valid cache length mask (decode). scale: the softmax's
+    (None: 1/sqrt(hd))."""
     B, Sq, H, hd = q.shape
     KH = k.shape[2]
     Skv = k.shape[1]
     qg = _grouped(q, KH)
     s = torch.einsum("bqkrh,bskh->bkrqs", qg.to(F32), k.to(F32))
-    s = s / math.sqrt(hd)
+    s = s / math.sqrt(hd) if scale is None else s * scale
     neg = float("-inf")
     if causal:
         qpos = torch.arange(Sq, device=q.device)[:, None]
@@ -165,9 +166,11 @@ def full_attention(q, k, v, *, causal, kv_len=None):
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def flash_attention(q, k, v, *, causal=True, q_chunk=2048, kv_chunk=2048):
+def flash_attention(q, k, v, *, causal=True, q_chunk=2048, kv_chunk=2048,
+                    scale=None):
     """Chunked online-softmax attention: outer loop over q chunks, inner
-    loop over kv chunks, f32 accumulators. Never materializes [Sq, Skv]."""
+    loop over kv chunks, f32 accumulators. Never materializes [Sq, Skv].
+    scale: the softmax's (None: 1/sqrt(hd))."""
     B, Sq, H, hd = q.shape
     KH = k.shape[2]
     Skv = k.shape[1]
@@ -175,7 +178,8 @@ def flash_attention(q, k, v, *, causal=True, q_chunk=2048, kv_chunk=2048):
     kv_chunk = min(kv_chunk, Skv)
     assert Sq % q_chunk == 0 and Skv % kv_chunk == 0
     nq, nk = Sq // q_chunk, Skv // kv_chunk
-    scale = 1.0 / math.sqrt(hd)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
     R = H // KH
     dev = q.device
     qg = _grouped(q, KH)
@@ -229,6 +233,12 @@ def _write_rows(out, u, start):
     return out
 
 
+def _scale(cfg: ModelConfig):
+    """The softmax scale the config sets (`attention_multiplier`), or None
+    for 1/sqrt(hd)."""
+    return cfg.attention_multiplier or None
+
+
 def attention_block(p, x, positions, cfg: ModelConfig, *, cache=None,
                     cache_pos=None, cross_kv=None, cache_out=None):
     """Full attention sublayer. Modes:
@@ -260,7 +270,8 @@ def attention_block(p, x, positions, cfg: ModelConfig, *, cache=None,
         else:
             ck = _write_rows(cache_out[0].copy_(ck), k, cache_pos)
             cv = _write_rows(cache_out[1].copy_(cv), v, cache_pos)
-        o = full_attention(q, ck, cv, causal=False, kv_len=cache_pos + S)
+        o = full_attention(q, ck, cv, causal=False, kv_len=cache_pos + S,
+                           scale=_scale(cfg))
         out = (o.reshape(B, S, cfg.num_heads * cfg.hd)
                @ p["wo"].to(x.dtype))
         return out, (ck, cv)
@@ -271,9 +282,9 @@ def attention_block(p, x, positions, cfg: ModelConfig, *, cache=None,
     # here that is `ops.flash_attention`, the Hopper kernels on a CUDA
     # tensor. `flash_attention` above stays as the model-level reference.
     if S <= 2048:
-        o = full_attention(q, k, v, causal=True)
+        o = full_attention(q, k, v, causal=True, scale=_scale(cfg))
     else:
-        o = ops.flash_attention(q, k, v, causal=True)
+        o = ops.flash_attention(q, k, v, causal=True, scale=_scale(cfg))
     out = o.reshape(B, S, cfg.num_heads * cfg.hd) @ p["wo"].to(x.dtype)
     return out, (k, v)
 

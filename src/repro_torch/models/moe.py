@@ -16,6 +16,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .. import telemetry as T
 from ..configs.base import ModelConfig
 from ..core import events as E
 from .layers import randn
@@ -35,6 +36,11 @@ def init_moe(gen, cfg: ModelConfig, device, lead=()):
 
 
 def capacity(cfg: ModelConfig, tokens: int) -> int:
+    """Slots an expert takes. Dropless (`moe_dropless`): every token, since
+    a token assigns an expert once at most, so nothing drops and the shapes
+    stay fixed."""
+    if cfg.moe_dropless:
+        return tokens
     c = int(cfg.capacity_factor * tokens * cfg.experts_per_token
             / cfg.num_experts)
     return max(8, -(-c // 8) * 8)   # pad to 8 for layout friendliness
@@ -94,18 +100,28 @@ def route(p, x, cfg: ModelConfig):
 
 
 def combine(out_e, info):
-    """Scatter expert outputs back to tokens, weighted by gate values."""
+    """Gather expert outputs back to tokens, weighted by gate values. Each
+    token's k contributions are added one after another from zero, in the
+    outputs' type, in the order of the sorted assignments (ascending expert
+    id): the JAX package's scatter-add order, the same on every run and
+    under graph replay (index_add_ on CUDA adds in any order)."""
     Ex, _, D = out_e.shape
     out_e = torch.cat([out_e, out_e.new_zeros((Ex, 1, D))], dim=1)  # trash
     contrib = out_e[info["sorted_eids"], info["pos_c"]]          # [TK, D]
-    TK = info["sorted_eids"].shape[0]
-    w = (info["gvals"].reshape(TK)[info["sort_idx"]]
+    sort_idx = info["sort_idx"]
+    TK = sort_idx.shape[0]
+    w = (info["gvals"].reshape(TK)[sort_idx]
          * info["keep"]).to(out_e.dtype)
-    # index_add_ on CUDA adds a token's k contributions in any order; with
-    # k <= 2 the sum 0 + a + b is the same in every order. k >= 3 (kimi-k2
-    # routes 8) would need the JAX package's order, the sorted one, kept.
-    return out_e.new_zeros((info["T"], D)).index_add_(
-        0, info["tok_idx"], contrib * w[:, None])
+    contrib = contrib * w[:, None]
+    # each token's k places in the sorted order, ascending
+    at = torch.empty_like(sort_idx).scatter_(
+        0, sort_idx, torch.arange(TK, device=sort_idx.device))
+    at = at.reshape(info["T"], -1).sort(dim=1).values
+    parts = contrib[at]                                         # [T, k, D]
+    out = out_e.new_zeros((info["T"], D))
+    for r in range(parts.shape[1]):
+        out = out + parts[:, r]
+    return out
 
 
 def expert_load(gids, num_experts: int):
@@ -138,10 +154,17 @@ def experts(p, disp):
 
 
 def apply_moe(p, x, cfg: ModelConfig):
-    """x: [B, S, D] -> [B, S, D]. Sort-based dropping dispatch."""
+    """x: [B, S, D] -> [B, S, D]. Sort-based dispatch (dropping, or
+    dropless at `moe_dropless`). The span `moe.routed` holds the router,
+    the dispatch, the experts and the combine; the keyed record
+    `moe.routed` counts each call by (experts held, k, D, expert width,
+    tokens, element size)."""
     B, S, D = x.shape
-    disp, info = route(p, x, cfg)
-    out = combine(experts(p, disp), info)
+    T.count("moe.routed", (p["w_in"].shape[-3], cfg.experts_per_token, D,
+                           p["w_in"].shape[-1], B * S, x.element_size()))
+    with T.span("moe.routed"):
+        disp, info = route(p, x, cfg)
+        out = combine(experts(p, disp), info)
     router_probes(info, cfg)
     return out.reshape(B, S, D)
 

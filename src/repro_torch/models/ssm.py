@@ -12,6 +12,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .. import telemetry as T
 from ..configs.base import ModelConfig
 from .layers import randn
 
@@ -133,14 +134,18 @@ def ssd_chunked(xh, dt, A, Bv, Cv, cfg: ModelConfig):
     """SSD dual form.
     xh: [B, S, H, P]; dt: [B, S, H] (post-softplus); A: [H] (negative);
     Bv, Cv: [B, S, G, N]. Returns (y [B, S, H, P], final state f32
-    [B, H, P, N]). S must be a multiple of min(ssm_chunk, S), as in the
-    JAX package."""
-    Bsz, S, H, P = xh.shape
+    [B, H, P, N]). The chunk is min(ssm_chunk, S). Where S is no multiple
+    of it, the last chunk is padded with dt 0, so a padded position
+    neither decays the state nor feeds it, and its outputs are dropped
+    (the JAX package takes whole chunks only)."""
+    Bsz, S0, H, P = xh.shape
     G, N = cfg.ssm_ngroups, cfg.ssm_state
-    L = min(cfg.ssm_chunk, S)
-    if S % L:
-        raise ValueError(f"{cfg.name}: sequence length {S} is not a "
-                         f"multiple of the SSD chunk {L}")
+    L = min(cfg.ssm_chunk, S0)
+    pad = -S0 % L
+    if pad:
+        xh, dt, Bv, Cv = (F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+                          for t in (xh, dt, Bv, Cv))
+    S = S0 + pad
     nc = S // L
     rep = H // G
 
@@ -175,6 +180,8 @@ def ssd_chunked(xh, dt, A, Bv, Cv, cfg: ModelConfig):
     y_off = torch.einsum("bclhn,bchpn,bclh->bclhp",
                          Crep.to(F32), h_prev, decay_in)
     y = (y_diag + y_off).reshape(Bsz, S, H, P)
+    if pad:
+        y = y[:, :S0]
     return y.to(xh.dtype), h_final
 
 
@@ -194,7 +201,13 @@ def chunk_scan(states, chunk_decay):
 def apply_mamba(p, x, cfg: ModelConfig, *, cache=None, return_state=False):
     """x: [B, S, D]. cache: None (train/prefill) or dict(conv, ssm) for
     decode (S must be 1). return_state=True (prefill) returns the final
-    (conv, ssm) state as the new cache. Returns (y [B,S,D], new_cache)."""
+    (conv, ssm) state as the new cache. Returns (y [B,S,D], new_cache).
+    Inside the span `ssm.mixer`."""
+    with T.span("ssm.mixer"):
+        return _mamba(p, x, cfg, cache, return_state)
+
+
+def _mamba(p, x, cfg: ModelConfig, cache, return_state):
     Bsz, S, D = x.shape
     dt_ = x.dtype
     di = cfg.d_inner()

@@ -43,7 +43,7 @@ def _init_block(gen, cfg: ModelConfig, j: int, dev, lead):
             p["moe"] = MOE.init_moe(gen, cfg, dev, lead=lead)
             if cfg.moe_shared:
                 p["mlp_shared"] = L.init_mlp(gen, cfg, dev, lead=lead,
-                                             d_ff=cfg.moe_d_ff)
+                                             d_ff=cfg.shared_d_ff)
         else:
             p["mlp"] = L.init_mlp(gen, cfg, dev, lead=lead)
     return p
@@ -124,6 +124,14 @@ def _moe_dispatch(p, x, cfg: ModelConfig):
     return MOE.apply_moe(p, x, cfg)
 
 
+def _residual(x, out, cfg: ModelConfig):
+    """x plus a sublayer's output, scaled by `residual_multiplier` where
+    it is not 1."""
+    if cfg.residual_multiplier != 1.0:
+        out = out * cfg.residual_multiplier
+    return x + out
+
+
 def _superblock_fwd(p_sb, x, cache_sb, positions, cfg: ModelConfig,
                     mode: str, cache_pos, out_sb=None):
     """out_sb (decode): the superblock's rows of the cache the new cache is
@@ -166,7 +174,7 @@ def _superblock_fwd(p_sb, x, cache_sb, positions, cfg: ModelConfig,
                         o[f].copy_(c[f])
             new_cache.append(c)
         out = probe_site("attn.out" if kind == "attn" else "ssm.out", out)
-        x = x + out
+        x = _residual(x, out, cfg)
 
         if ffn != "none":
             h2 = L.apply_norm(p["norm2"], x, cfg)
@@ -177,7 +185,7 @@ def _superblock_fwd(p_sb, x, cache_sb, positions, cfg: ModelConfig,
             else:
                 f = L.apply_mlp(p["mlp"], h2, cfg)
             f = probe_site("ffn.out", f)
-            x = x + f
+            x = _residual(x, f, cfg)
         x = probe_site("block", x, kind=E.KIND_EXIT)
     return x, (new_cache if out_sb is None else None)
 
@@ -197,6 +205,8 @@ def forward(params, tokens, cfg: ModelConfig, *, embeds=None,
     written into and returned as, `cache` only read. Returns (logits f32
     [B, S, V], new_cache|None)."""
     x = L.embed(params["embed"], tokens, cfg)
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     if embeds is not None:
         x = torch.cat([embeds.to(x.dtype), x], dim=1)
     B, S, _ = x.shape
@@ -236,5 +246,7 @@ def forward(params, tokens, cfg: ModelConfig, *, embeds=None,
 
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.unembed(params["embed"], x, cfg).to(F32)
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
     logits = probe_site("logits", logits)
     return logits, new_cache

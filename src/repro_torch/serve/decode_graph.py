@@ -30,6 +30,14 @@ A set of graphs is captured at the first call in its direction, and again
 after the parameters object or the token batch's shape changes. The keyed
 record `decode.graph` counts each call as "capture" or "replay"; the
 decode step counts its eager calls as "eager".
+
+Spans and records. A replay runs none of the model's Python, so the spans
+it would open and the records it would count (`telemetry.py`) are noted
+while each segment is captured. A replay runs a segment inside a span of
+the one name the segment opened (none where it opened two or more, or
+none), and counts the segment's records again. Cut at the probe sites, a
+segment holds one layer's mixer or its experts: the `ssm.mixer` and
+`moe.routed` spans of a probed step come back at each replay.
 """
 from __future__ import annotations
 
@@ -63,10 +71,12 @@ class _Capture(E.Collector):
         super().__init__(wanted)
         self.pool = pool
         self.graph = None
-        self.segments: list = []         # (graph, site or None)
+        # (graph, site or None, span name or None, records)
+        self.segments: list = []
 
     def begin(self):
         self.graph = torch.cuda.CUDAGraph()
+        T.notes_begin()
         self.graph.capture_begin(pool=self.pool,
                                  capture_error_mode="thread_local")
 
@@ -78,7 +88,11 @@ class _Capture(E.Collector):
             # site) captures no work: a valid graph whose replay does nothing
             warnings.filterwarnings("ignore", "The CUDA Graph is empty")
             graph.capture_end()
-        self.segments.append((graph, site))
+        notes = T.notes_end()
+        spans = {n[1] for n in notes if n[0] == "span"}
+        self.segments.append((graph, site,
+                              spans.pop() if len(spans) == 1 else None,
+                              [n[1:] for n in notes if n[0] == "count"]))
 
     def emit_tensor_event(self, site_id: int, kind: int, tensor):
         if self.graph is not None:
@@ -115,8 +129,11 @@ class DecodeGraphs:
             self.sets[src] = self._capture(src)
         segments, logits = self.sets[src]
         layer = col.layer_ctx if col is not None else 0
-        for graph, site in segments:
-            graph.replay()
+        for graph, site, name, records in segments:
+            with T.span(name) if name else T.OFF:
+                graph.replay()
+            for rec in records:
+                T.count(*rec)
             if site is not None:
                 sid, kind, at, t = site
                 col.layer_ctx = at
@@ -177,6 +194,7 @@ class DecodeGraphs:
                 if cap.graph is not None:
                     with contextlib.suppress(RuntimeError):
                         cap.graph.capture_end()
+                    T.notes_end()
                 raise
             cap.end()
         torch.cuda.current_stream(dev).wait_stream(self.stream)

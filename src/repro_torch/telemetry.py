@@ -19,6 +19,11 @@ counted (`device.tracing()`) every span is a no-op.
 a length, a position) while telemetry is on. The kernels' launch totals
 (`kernels/ops.launch_counts()`) stay always on; `records()` returns them
 beside the keyed records.
+
+While a CUDA graph is captured, `notes_begin()` / `notes_end()` keep, on
+or off, the names of the spans opened and the records counted in between,
+so that a replay of the graph, which runs no Python of the model, can
+open and count them again (`serve/decode_graph.py`).
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ PREFIX = "repro_torch."
 
 _ON = False
 _KEYED: dict[str, dict] = {}
+_NOTES: list | None = None
 
 
 class _Off:
@@ -73,12 +79,16 @@ def on() -> bool:
 def span(name: str):
     """A context manager around a region named `name` (static: each name
     is listed in PERF.md with the metric it feeds)."""
+    if _NOTES is not None:
+        _NOTES.append(("span", name))
     if not _ON or tracing():
         return OFF
     return _Span(PREFIX + name)
 
 
 def count(name: str, key, n: int = 1) -> None:
+    if _NOTES is not None:
+        _NOTES.append(("count", name, key, n))
     if _ON:
         rec = _KEYED.setdefault(name, {})
         rec[key] = rec.get(key, 0) + n
@@ -87,6 +97,20 @@ def count(name: str, key, n: int = 1) -> None:
 def shapes(*tensors) -> tuple:
     """A launch's key: (shape, element size) of each tensor it was given."""
     return tuple((tuple(t.shape), t.element_size()) for t in tensors)
+
+
+def notes_begin() -> None:
+    """Keep the spans opened and the records counted from here on."""
+    global _NOTES
+    _NOTES = []
+
+
+def notes_end() -> list:
+    """What was kept since `notes_begin()`: ("span", name) and ("count",
+    name, key, n), in order; keeping stops."""
+    global _NOTES
+    out, _NOTES = _NOTES or [], None
+    return out
 
 
 @contextlib.contextmanager

@@ -35,9 +35,22 @@ def weights():
     return jp, TMR.params_from_numpy(npp, CPU)
 
 
+# the fields the port's config adds to the JAX package's (granite-4.0-h's
+# scalars, its shared expert's width, the dropless router), each at a
+# default that changes nothing
+PORT_FIELDS = {"moe_shared_d_ff": 0, "moe_dropless": False,
+               "embedding_multiplier": 1.0, "residual_multiplier": 1.0,
+               "attention_multiplier": 0.0, "logits_scaling": 1.0}
+
+
 def test_config_copied_unchanged():
-    assert TCFG.get("qwen2-0.5b").__dict__ == JCFG.get("qwen2-0.5b").__dict__
-    assert TCFG_.__dict__ == JCFG_.__dict__
+    """Every field of the JAX package's config, copied with its value;
+    the port's own fields at their defaults."""
+    for t, j in ((TCFG.get("qwen2-0.5b"), JCFG.get("qwen2-0.5b")),
+                 (TCFG_, JCFG_)):
+        td = dict(t.__dict__)
+        assert {k: td.pop(k) for k in PORT_FIELDS} == PORT_FIELDS
+        assert td == j.__dict__
 
 
 def test_weights_carry_across(weights):

@@ -1,7 +1,8 @@
 """The port's Mamba-2 (SSD) block and the SSM and hybrid families against
 the JAX package, on the CPU: the init's constant leaves bit for bit, the
 chunked dual form at four and more chunks, the prefill and decode branches
-of apply_mamba with their states, the reference's chunk-length limit; then
+of apply_mamba with their states, the reference's chunk-length limit and
+the port's padded last chunk; then
 mamba2 and jamba at smoke width (f32) through prefill, decode, the loss
 and serving with the SSM (and, for jamba, the MoE) probes."""
 import dataclasses
@@ -85,14 +86,24 @@ def test_ssd_chunked_matches_jax(S):
 
 
 def test_both_packages_raise_on_a_partial_chunk():
-    """The reference's limit, kept: S must be a multiple of
-    min(ssm_chunk, S)."""
+    """The reference's limit: S must be a multiple of min(ssm_chunk, S),
+    and the JAX package raises on 7 positions at chunk 2. The port takes
+    them, its last chunk padded with dt 0 (models/ssm.py): its 7 outputs
+    and final state are the JAX package's over the same inputs padded to
+    8 positions with dt 0."""
     jc, tc = both_cfgs(MAMBA2)
     args = _ssd_inputs(jc, 7)
     with pytest.raises(AssertionError):
         JSSM.ssd_chunked(*map(jnp.asarray, args), jc)
-    with pytest.raises(ValueError, match="SSD chunk"):
-        TSSM.ssd_chunked(*map(torch.as_tensor, args), tc)
+    xh, dt, A, Bv, Cv = (np.concatenate([t, np.zeros_like(t[:, :1])], 1)
+                         if t.ndim > 1 else t for t in args)
+    jy, jh = JSSM.ssd_chunked(*map(jnp.asarray, (xh, dt, A, Bv, Cv)), jc)
+    ty, th = TSSM.ssd_chunked(*map(torch.as_tensor, args), tc)
+    assert ty.shape[1] == 7
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy)[:, :7], rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=TOL,
+                               atol=TOL)
 
 
 def test_apply_mamba_prefill_and_decode_match_jax():
@@ -170,9 +181,13 @@ def test_family_serves_as_jax_with_its_probes(family):
         steps * n_mamba * tc.num_layers // tc.superblock
 
 
-def test_launcher_stops_where_the_reference_does():
+def test_launcher_stops_where_the_reference_does(capsys):
     """With the default requests the third prompt has 3 tokens, not a
-    multiple of the smoke SSD chunk: the JAX launcher's AssertionError, a
-    ValueError here."""
-    with pytest.raises(ValueError, match="sequence length 3 .* chunk 2"):
-        TL.main(["--arch", MAMBA2, "--device", CPU])
+    multiple of the smoke SSD chunk: the JAX package's SSD stops there
+    (the launcher's AssertionError). The port's prefill pads the last
+    chunk, so its launcher serves all eight requests."""
+    jc, _ = both_cfgs(MAMBA2)
+    with pytest.raises(AssertionError):
+        JSSM.ssd_chunked(*map(jnp.asarray, _ssd_inputs(jc, 3)), jc)
+    TL.main(["--arch", MAMBA2, "--device", CPU])
+    assert "served 8, rejected 0" in capsys.readouterr().out
