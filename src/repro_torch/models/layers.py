@@ -5,8 +5,9 @@ v), SwiGLU/GeLU MLP, embeddings.
 
 Layouts follow the JAX package at every public function: weights are
 [in, out] and used as `x @ w`; q/k/v are [B, S, H, hd]. Parameters are
-kept in f32 and cast to the compute dtype at use. Large products are
-plain `torch.matmul`.
+kept in f32 and cast to the compute dtype at use; serving hands in those
+leaves already in the compute type (`registry.serving_params`), where the
+cast returns them as they are. Large products are plain `torch.matmul`.
 """
 from __future__ import annotations
 
@@ -120,6 +121,12 @@ def init_attention(gen, cfg: ModelConfig, device, lead=()):
         p["bk"] = torch.zeros(lead + (KH * hd,), dtype=F32, device=device)
         p["bv"] = torch.zeros(lead + (KH * hd,), dtype=F32, device=device)
     return p
+
+
+# the leaves each module of this file uses only through a cast to the
+# compute type (`registry.serving_params` holds them in it for serving);
+# the norms' scale and bias enter f32 arithmetic and are declared nowhere
+ATTENTION_CAST_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 
 
 def _qkv(p, x, cfg: ModelConfig):
@@ -302,6 +309,9 @@ def init_mlp(gen, cfg: ModelConfig, device, lead=(), d_ff=None):
     return p
 
 
+MLP_CAST_LEAVES = ("wi", "wg", "wo")
+
+
 def apply_mlp(p, x, cfg: ModelConfig):
     dt = x.dtype
     h = x @ p["wi"].to(dt)
@@ -325,6 +335,10 @@ def init_embedding(gen, cfg: ModelConfig, device):
         p["lm_head"] = randn(gen, (cfg.d_model, cfg.padded_vocab), 0.02,
                              device)
     return p
+
+
+# the gather commutes with the cast, bit for bit
+EMBEDDING_CAST_LEAVES = ("embedding", "lm_head")
 
 
 def embed(p, tokens, cfg: ModelConfig):

@@ -35,6 +35,11 @@ def init_moe(gen, cfg: ModelConfig, device, lead=()):
     }
 
 
+# the leaves used only through a cast to the compute type
+# (`registry.serving_params` holds them in it for serving)
+CAST_LEAVES = ("router", "w_in", "w_gate", "w_out")
+
+
 def capacity(cfg: ModelConfig, tokens: int) -> int:
     """Slots an expert takes. Dropless (`moe_dropless`): every token, since
     a token assigns an expert once at most, so nothing drops and the shapes

@@ -13,7 +13,8 @@ import torch
 from .. import telemetry as T
 from ..configs.base import ModelConfig
 from ..device import resolve
-from . import encdec as ED, transformer as TF
+from . import encdec as ED, layers as L, moe as MOE, ssm as SSM, \
+    transformer as TF
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
@@ -100,6 +101,52 @@ def decode_capturable(cfg: ModelConfig) -> bool:
     if any(cfg.ffn_kind(j) == "moe" for j in range(cfg.superblock)):
         return not TF.expert_parallel(cfg)
     return True
+
+
+# each module's leaves that its functions use only through a cast to the
+# compute type, by the key the module's subtree has in a family's tree
+# (`transformer._init_block`, `encdec._init_layer`); a subtree no key names
+# here keeps every leaf
+CAST_LEAVES = {"embed": L.EMBEDDING_CAST_LEAVES,
+               "attn": L.ATTENTION_CAST_LEAVES,
+               "xattn": L.ATTENTION_CAST_LEAVES,
+               "mlp": L.MLP_CAST_LEAVES, "mlp_shared": L.MLP_CAST_LEAVES,
+               "moe": MOE.CAST_LEAVES, "mamba": SSM.CAST_LEAVES}
+
+
+def serving_params(params, cfg: ModelConfig):
+    """The tree serving runs on, built once: `params`' structure, each
+    leaf of `CAST_LEAVES` cast to the compute type here, so that the
+    model's casts at use return it with no kernel and no copy; every other
+    leaf is the same tensor. The model computes the same bits on either
+    tree. `params` is left as it is. Where the compute type is float32,
+    `params` itself. The keyed record `serve.compute_weights` counts the
+    call by (leaves cast, leaves kept, bytes held in the compute type)."""
+    dt = L.cdtype(cfg)
+    if dt == torch.float32:
+        return params
+    cast, kept = [], []
+
+    def leaf(t, to_cast):
+        if to_cast:
+            t = t.to(dt)
+        (cast if to_cast else kept).append(t)
+        return t
+
+    def walk(t, names):
+        if isinstance(t, dict):
+            return {k: leaf(v, k in names) if isinstance(v, torch.Tensor)
+                    else walk(v, CAST_LEAVES.get(k, ()))
+                    for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, names) for v in t)
+        return t
+
+    with torch.no_grad():
+        tree = walk(params, ())
+    T.count("serve.compute_weights", (len(cast), len(kept), sum(
+        t.numel() * t.element_size() for t in cast)))
+    return tree
 
 
 def params_from_numpy(tree, device="cuda"):

@@ -92,6 +92,12 @@ def init_mamba(gen, cfg: ModelConfig, device, lead=()):
     }
 
 
+# the leaves used only through a cast to the compute type
+# (`registry.serving_params` holds them in it for serving); A_log, dt_bias
+# and norm_scale enter f32 arithmetic
+CAST_LEAVES = ("in_proj", "out_proj", "conv_w", "conv_b", "D")
+
+
 def _split_proj(zxbcdt, cfg):
     di = cfg.d_inner()
     G, N = cfg.ssm_ngroups, cfg.ssm_state

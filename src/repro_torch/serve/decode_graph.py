@@ -42,6 +42,7 @@ segment holds one layer's mixer or its experts: the `ssm.mixer` and
 from __future__ import annotations
 
 import contextlib
+import gc
 import warnings
 
 import torch
@@ -184,8 +185,12 @@ class DecodeGraphs:
         with torch.cuda.stream(self.stream), torch.no_grad():
             run()
             # the warm pass's memory stays cached for the side stream, where
-            # nothing else would reuse it: hand it back before the capture
+            # nothing else would reuse it: hand it back before the capture;
+            # and collect garbage first, as `torch.cuda.graph` does: graphs
+            # of an earlier step freed by a collection inside the capture
+            # would invalidate it
             torch.cuda.synchronize(dev)
+            gc.collect()
             torch.cuda.empty_cache()
             cap.begin()
             try:

@@ -36,6 +36,10 @@ class ServeEngine:
                  worker_id: str | None = None, device="cuda"):
         self.device = resolve(device)
         self.params = params
+        # what the model serves on: every leaf it uses only through a cast
+        # to the compute type held in that type; one object at every call,
+        # so the decode graphs are captured once
+        self.serving_params = MR.serving_params(params, cfg)
         self.cfg = cfg
         self.slots = slots
         self.max_seq = max_seq
@@ -98,8 +102,8 @@ class ServeEngine:
                                 device=self.device)
             c1 = MR.make_cache(self.cfg, 1, self.max_seq, torch.float32,
                                self.device)
-            logits, c1 = MR.prefill_fn(self.params, {"tokens": toks}, c1,
-                                       self.cfg)
+            logits, c1 = MR.prefill_fn(self.serving_params,
+                                       {"tokens": toks}, c1, self.cfg)
             # the engine owns its cache: write the slot in place
             with T.span("serve.slot_write"):
                 for full, one in zip(self.cache["blocks"], c1["blocks"]):
@@ -139,7 +143,7 @@ class ServeEngine:
         toks = [[r.out[-1] if r is not None and r.out else 0]
                 for r in self.active]
         nxt, _, self.cache, self.maps = self._decode(
-            self.params,
+            self.serving_params,
             torch.tensor(toks, dtype=torch.int64, device=self.device),
             self.cache, self.maps, self.step_count)
         if self._decode.last is not None:

@@ -6,8 +6,8 @@ step counting its eager calls there, and the model's decode writing its new
 cache into a given buffer (the graphs' double buffer) with the eager
 decode's bits. On the card (marked `cuda`, skipping without one; this file
 imports no JAX): the graphed step against the eager step, step by step,
-for each decoder family the predicate admits, and the engine with and
-without graphs:
+for each decoder family the predicate admits, the same on the serving
+tree's bf16 weights, and the engine with and without graphs:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_decode_graph.py
 """
@@ -259,3 +259,38 @@ def test_engine_serves_the_same_with_and_without_graphs(cuda, arch,
     assert n_e == {"eager": steps}
     assert n_g == {"capture": 2, "replay": steps - 2}
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILIES + ["granite-4.0-h-small"])
+def test_graphed_step_on_the_serving_tree(cuda, arch):
+    """Six calls of the graphed step on the serving tree
+    (`registry.serving_params`, one object at every call, as `ServeEngine`
+    passes it) against the eager step on the f32 tree: the same next
+    tokens, event rows, maps, logits and cache, bit for bit; one capture
+    in each direction, every later call a replay."""
+    cfg = _card_config(arch)
+    B, S = 4, 32
+    params = MR.init_params(cfg, torch.Generator(cuda).manual_seed(4), cuda)
+    served = MR.serving_params(params, cfg)
+    assert served is not params
+    rt_e, rt_g = _runtime(cfg), _runtime(cfg)
+    eager = make_decode_step(cfg, rt_e)
+    graphed = make_decode_step(cfg, rt_g, graphs=True)
+    ce = MR.make_cache(cfg, B, S, torch.float32, cuda)
+    _prefill_into(params, cfg, [ce], range(B), [3, 1, 4, 1, 5, 9], S)
+    cg = E._tree_map(torch.clone, ce)
+    me, mg = rt_e.init_device_maps(cuda), rt_g.init_device_maps(cuda)
+    toks = torch.arange(B, device=cuda)[:, None] % cfg.vocab_size
+    with T.recording():
+        for step in range(6):
+            ne, le, ce, me = eager(params, toks, ce, me, step)
+            ng, lg, cg, mg = graphed(served, toks, cg, mg, step)
+            assert torch.equal(ne, ng), step
+            assert torch.equal(le, lg), step
+            assert torch.equal(eager.last[0], graphed.last[0]), step
+            assert _equal(_maps(me), _maps(mg)), step
+            assert _equal(E._tree_leaves(ce), E._tree_leaves(cg)), step
+            toks = ne[:, None].to(toks.dtype)
+        counts = dict(T.records()["keyed"]["decode.graph"])
+    assert counts == {"eager": 6, "capture": 2, "replay": 4}
