@@ -55,9 +55,6 @@
 //     runs every lane to its exit and meets one barrier. With more lanes
 //     than threads, a paused lane's state goes to the scratch `lanes` only
 //     at those rounds.
-// clock64() stamps at the phase boundaries go to `stamps`: start, copy-in,
-// sequential sub-lane, the end of each slot's vec lanes, copy-out, then the
-// cycles spent applying HASH requests and the number of rounds.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -111,9 +108,6 @@ enum { S_DONE, S_READY, S_PAUSED, S_FRESH };
 // packed aux out: time, cpu, pid, rand, override set/val, printk_n, buf
 enum { A_TIME, A_CPU, A_PID, A_RAND, A_OVSET, A_OVVAL, A_PRINTK_N,
        A_PRINTK_BUF, A_WORDS = A_PRINTK_BUF + 16 };
-// stamps: start, copy-in, sequential sub-lane, then one per slot, then
-// copy-out, HASH apply cycles, HASH rounds
-enum { T_START, T_COPYIN, T_SEQ, T_SLOTS };
 
 struct MapDesc {
   i64 kind, n, width, shards;
@@ -131,7 +125,6 @@ struct Params {
   i64* aux_out;          // A_WORDS
   i64* r0;               // i64[P, E] or null
   i64* lanes;            // i64[E, kLaneWords], then ceil(E / 64) mask words
-  i64* stamps;           // i64[P + 6]
   i64 P, N, E, ctx_words, nmaps, match_all;
   i64 maps_shared;       // 1: map states in shared memory during the launch
   i64 tape_shared;       // 1: the whole tape in shared memory, 0: a ring
@@ -814,8 +807,6 @@ table_interp(const __grid_constant__ Params prm) {
   const int tid = threadIdx.x;
   const i64 P = prm.P, N = prm.N, E = prm.E, cw = prm.ctx_words;
   const i64 nmaps = prm.nmaps, PN = P * N;
-  i64* stamps = prm.stamps;
-  if (tid == 0) stamps[T_START] = clock64();
 
   // 1. copy-in: records, meta, map descriptors, aux, map states, tape
   Rec* rec = reinterpret_cast<Rec*>(smem + kSeqWords);
@@ -870,7 +861,6 @@ table_interp(const __grid_constant__ Params prm) {
     sh.nseq = n;
   }
   __syncthreads();
-  if (tid == 0) stamps[T_COPYIN] = clock64();
 
   // 2. the sequential sub-lane, thread 0, in tape order
   if (tid == 0 && sh.nseq > 0) {
@@ -906,14 +896,12 @@ table_interp(const __grid_constant__ Params prm) {
     if (ring) cp_async_wait<0>();
   }
   __syncthreads();
-  if (tid == 0) stamps[T_SEQ] = clock64();
 
   // 3. the vec sub-lane, slot by slot: every lane runs free; rounds apply
   // the HASH fetch-adds in (machine step, lane) order
   const bool multi = E > kThreads;
   const int st = (int)prm.lane_stride;
   i64* R = smem + prm.sm_lanes + tid;
-  i64 hash_cycles = 0, rounds = 0;
   int parity = 0;
   for (i64 p = 0; p < P; ++p) {
     if (meta[M_ACTIVE * P + p] && meta[M_VEC * P + p]) {
@@ -993,20 +981,14 @@ table_interp(const __grid_constant__ Params prm) {
         }
         __syncthreads();
         if (tid < 32) {
-          const i64 c0 = clock64();
           hash_round(sh, prm.lanes, mask, E);
-          if (tid == 0) {
-            hash_cycles += clock64() - c0;
-            rounds += 1;
-            sh.tmin[parity] = kNone;
-          }
+          if (tid == 0) sh.tmin[parity] = kNone;
         }
         parity ^= 1;
         __syncthreads();
       }
       parity ^= 1;
     }
-    if (tid == 0) stamps[T_SLOTS + p] = clock64();
   }
 
   // 4. copy-out: the shared route's map states and the aux block
@@ -1018,12 +1000,6 @@ table_interp(const __grid_constant__ Params prm) {
         for (i64 i = tid; i < d.len[f]; i += kThreads) out[i] = d.out[f][i];
       }
   for (int i = tid; i < A_WORDS; i += kThreads) prm.aux_out[i] = sh.aux[i];
-  __syncthreads();
-  if (tid == 0) {
-    stamps[T_SLOTS + P] = clock64();
-    stamps[T_SLOTS + P + 1] = hash_cycles;
-    stamps[T_SLOTS + P + 2] = rounds;
-  }
 }
 
 }  // namespace
@@ -1043,16 +1019,6 @@ extern "C" int repro_table_interp_sizes(int* params_bytes, int* max_maps,
   *rec_words = kRecWords;
   *seq_words = kSeqWords;
   return 0;
-}
-
-// The clock that clock64() counts on the current device, in kHz (the
-// stamps' unit).
-extern "C" int repro_table_interp_clock_khz(int* khz) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(khz, cudaDevAttrClockRate, dev);
-  return (int)e;
 }
 
 // prm: the launch's parameters in host memory (copied into the launch);

@@ -1,9 +1,9 @@
 """The cases the interpreter kernel is held to its plain version on.
 
-`chip_smoke.py` (phase 2) and `tests/test_torch_cuda.py` build these and
-run each through `ops.table_interp_run` twice: on CUDA tensors (the
-kernel) and on CPU copies (the plain version), then compare map states,
-aux and r0 bit for bit. Every case is made from a seed with numpy.
+`tests/test_torch_cuda.py` builds these and runs each through
+`ops.table_interp_run` twice: on CUDA tensors (the kernel) and on CPU
+copies (the plain version), then compares map states, aux and r0 bit for
+bit. Every case is made from a seed with numpy.
 
   * `mixed_case`: a live table of eight slots on one runtime -- vec slots
     (ARRAY, HASH and LOG2HIST counters, a HASH map that fills, a loop)

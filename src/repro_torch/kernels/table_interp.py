@@ -23,11 +23,6 @@ during the launch when they fit beside the records and the lanes
 ("shared"), else in device memory ("global"); the tape sits in shared
 memory when it fits after them ("shared"), else the sequential walk stages
 its rows ahead through a ring ("ring").
-
-Every launch leaves `clock64()` stamps (`LAST_STAMPS`, i64[P + 6]): start,
-copy-in, the sequential sub-lane, the end of each slot's vec lanes,
-copy-out, the cycles spent applying HASH requests and the number of HASH
-rounds; `phase_split` turns them into microseconds at `clock_khz()`.
 """
 from __future__ import annotations
 
@@ -40,7 +35,6 @@ import torch
 from . import build
 
 LAUNCHES = 0
-LAST_STAMPS = None            # the last launch's stamps (a device tensor)
 MAX_MAPS = 24
 LANE_WORDS = 32
 AUX_WORDS = 23
@@ -59,15 +53,15 @@ AUX_IN = ("time_ns", "cpu", "pid", "rand", "override_set", "override_val",
 
 _p = ctypes.c_void_p
 # the kernel's Params as i64 words: table, rows, aux_in[8], aux_out, r0,
-# lanes, stamps, P, N, E, ctx_words, nmaps, match_all, maps_shared,
+# lanes, P, N, E, ctx_words, nmaps, match_all, maps_shared,
 # tape_shared, sm_meta, sm_slots, sm_lanes, lane_stride, sm_maps, sm_tape;
 # then per map: kind, n, width, shards, len[3], in[3], out[3]
-HEAD_WORDS = 28
+HEAD_WORDS = 27
 DESC_WORDS = 13
 PARAMS_WORDS = HEAD_WORDS + DESC_WORDS * MAX_MAPS
-(W_TABLE, W_ROWS, W_AUX_IN, W_AUX_OUT, W_R0, W_LANES, W_STAMPS, W_P, W_N,
- W_E, W_CW, W_NMAPS, W_MATCH_ALL, W_MAPS_SHARED, W_TAPE_SHARED,
- W_SM_META) = (0, 1, 2, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22)
+(W_TABLE, W_ROWS, W_AUX_IN, W_AUX_OUT, W_R0, W_LANES, W_P, W_N, W_E, W_CW,
+ W_NMAPS, W_MATCH_ALL, W_MAPS_SHARED, W_TAPE_SHARED,
+ W_SM_META) = (0, 1, 2, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21)
 
 
 _FN = None
@@ -180,43 +174,15 @@ def plan(spec_key, P: int, N: int, E: int, cw: int) -> dict:
     return layout(_plan(spec_key)[-1], P, N, E, cw)
 
 
-def clock_khz() -> int:
-    """The rate of the clock the stamps count, in kHz, as the current CUDA
-    device reports it."""
-    fn = build.function("table_interp", "repro_table_interp_clock_khz", [_p])
-    khz = ctypes.c_int()
-    build.check(fn(ctypes.byref(khz)), "table_interp clock")
-    return khz.value
-
-
-def phase_split(stamps, khz: int, vec_slots) -> dict:
-    """Microseconds of each phase of one launch from its stamps (i64[P + 6],
-    on any device): copy-in, the sequential sub-lane, the vec sub-lane (and
-    each slot of `vec_slots`), of which applying HASH requests, copy-out,
-    the whole launch; and the number of HASH rounds."""
-    t = [int(v) for v in stamps.tolist()]
-    P = len(t) - 6
-    us = 1e3 / khz
-
-    def span(a, b):
-        return (t[b] - t[a]) * us
-
-    return {"copy_in": span(0, 1), "seq": span(1, 2), "vec": span(2, 2 + P),
-            "hash_apply": t[4 + P] * us, "copy_out": span(2 + P, 3 + P),
-            "total": span(0, 3 + P), "hash_rounds": t[5 + P],
-            "per_vec_slot": {p: span(2 + p, 3 + p) for p in vec_slots}}
-
-
 def table_interp_cuda(spec_key, table, rows, maps, aux, *,
                       match_all: bool = False, want_r0: bool = False):
     """One launch of the interpreter over `rows` i64[E, ctx_words] on a CUDA
     device. spec_key: the live table's map universe ((name, kind,
     max_entries, rec_width, num_shards) per fd); table: its device state
     ("packed" plus views); maps: {name: state} of those maps. Returns new
-    (maps, aux, r0 i64[P, E] or None). The new map states, the aux block,
-    the vec sub-lane's lane scratch and the stamps are views of one
-    allocation."""
-    global LAUNCHES, LAST_STAMPS
+    (maps, aux, r0 i64[P, E] or None). The new map states, the aux block
+    and the vec sub-lane's lane scratch are views of one allocation."""
+    global LAUNCHES
     dev = rows.device
     build.require(rows, "table_interp rows", torch.int64, 2, dev)
     packed = table["packed"]
@@ -247,7 +213,7 @@ def table_interp_cuda(spec_key, table, rows, maps, aux, *,
                              f"int64 tensor on {dev}")
         words[W_AUX_IN + j] = t.data_ptr()
     scratch = E * LANE_WORDS + -(-E // 64)
-    out = torch.empty(total + AUX_WORDS + scratch + P + 6, dtype=torch.int64,
+    out = torch.empty(total + AUX_WORDS + scratch, dtype=torch.int64,
                       device=dev)
     base = out.data_ptr()
     words[in_w] = ins
@@ -257,7 +223,6 @@ def table_interp_cuda(spec_key, table, rows, maps, aux, *,
     words[W_TABLE], words[W_ROWS] = packed.data_ptr(), rows.data_ptr()
     words[W_AUX_OUT] = base + 8 * total
     words[W_LANES] = base + 8 * (total + AUX_WORDS)
-    words[W_STAMPS] = base + 8 * (total + AUX_WORDS + scratch)
     words[W_R0] = r0.data_ptr() if r0 is not None else 0
     words[W_P:W_CW + 1] = (P, N, E, cw)
     words[W_MATCH_ALL] = int(match_all)
@@ -269,8 +234,7 @@ def table_interp_cuda(spec_key, table, rows, maps, aux, *,
                    build.stream_ptr(dev))
     build.check(rc, "table_interp")
     LAUNCHES += 1
-    parts = out.split([n for *_, n in fields] + [AUX_WORDS, scratch, P + 6])
-    LAST_STAMPS = parts[-1]
+    parts = out.split([n for *_, n in fields] + [AUX_WORDS, scratch])
     out_maps: dict = {}
     for (name, f, shape, _), t in zip(fields, parts):
         out_maps.setdefault(name, {})[f] = t.view(shape) if len(shape) > 1 \

@@ -36,8 +36,8 @@ from .ref import STAT_KEYS
 
 LAUNCHES = 0                  # incremented once per kernel launch
 BLOCK = 256                   # threads per block (kThreads in the source)
-# The grid constants were measured on one H100 80GB HBM3 at 700 W by
-# `python -m repro_torch.kernels.tune_stats` (PERF.md, PR 14):
+# The grid constants were measured on one H100 80GB HBM3 at 700 W
+# (PERF.md §6, the kernel table):
 # - one block takes a tensor of up to ONE_BLOCK_MAX elements whole (no
 #   partials, no ticket): one block was faster than a 32-block grid at
 #   8,192 elements and slower at 16,384;

@@ -1,6 +1,6 @@
 """Serving driver: batched requests against the reduced (smoke) config of
 an architecture with optional bpftime instrumentation, on the GPU by
-default. Also holds the serving probe sets that chip_smoke.py and the
+default. Also holds the serving probe sets that the tests and the card
 tests attach.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
@@ -156,7 +156,7 @@ def family_probes(cfg) -> list:
                                  for j in layers) else []))
 
 
-# The live-lane programs chip_smoke.py hot-attaches while serving, each on
+# The live-lane programs the card tests hot-attach while serving, each on
 # a map of its own and on integer fields only: a per-layer ARRAY counter
 # (a vec slot), a RINGBUF record of each logits event (a sequential slot),
 # a LOG2HIST of block sizes (a vec slot), and a per-layer HASH counter (the

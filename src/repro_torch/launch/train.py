@@ -17,7 +17,7 @@ here (the paper's workflow, §3.2):
     next `sync_live_table`, and promoted links hand the loop the step
     their promotion built.
 
-TRAIN_PROBES is the instrumentation chip_smoke.py trains with.
+TRAIN_PROBES is the instrumentation the card tests train with.
 """
 from __future__ import annotations
 

@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
+import torch_card as C  # noqa: E402
 from repro_torch.core import events as TE, maps as M  # noqa: E402
 from repro_torch.kernels import (hash_update as TH, ops, ref as TREF,  # noqa: E402,E501
                                  ringbuf_emit as TRB, tensor_stats as TTS)
@@ -33,15 +34,39 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(4, 1, 896), (4, 1, 152064), (1 << 22,),
-                                   (1,), (1027,)])
+# the serving and training paths' probed tensors: qwen2-0.5b's block and
+# logits rows and its training block; llama4-scout's, mamba2's, seamless's
+# and qwen2-vl's blocks and logits, the router's moe.load and moe.drops;
+# the training blocks of mamba2, qwen2-vl and llama4-scout at 4096 tokens;
+# odd sizes, one element, the one-block cut and 64 Mi elements
+STATS_SHAPES = [(4, 1, 896), (4, 1, 152064), (2, 4096, 896), (1 << 22,),
+                (1,), (1027,), (TTS.ONE_BLOCK_MAX + 1,), (1 << 26,),
+                (4, 1, 5120), (16,), (4, 1, 202240), (4, 1, 1536),
+                (4, 1, 50432), (4, 4096, 1024), (4, 1, 256256), (4, 1, 8192),
+                (4, 4096, 1536), (1, 4096, 8192), (1, 4096, 5120)]
+
+
+def _stats_input(cuda, shape, dtype, seed):
+    """Normal values times 5 with NaN, +Inf and -Inf first and, in a large
+    tensor, 16 NaN, 8 +Inf and 8 -Inf scattered."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=cuda) * 5
+    flat = x.view(-1)
+    flat[:3] = torch.tensor([float("nan"), float("inf"),
+                             float("-inf")], device=cuda)[:x.numel()]
+    if x.numel() > 64:
+        idx = torch.randint(0, x.numel(), (32,), generator=g, device=cuda)
+        flat[idx[:16]] = float("nan")
+        flat[idx[16:24]] = float("inf")
+        flat[idx[24:]] = float("-inf")
+    return x.to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("shape", STATS_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_tensor_stats_kernel_matches_plain(cuda, shape, dtype):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn(shape, generator=g, device=cuda) * 5
-    x.view(-1)[:3] = torch.tensor([float("nan"), float("inf"),
-                                   float("-inf")], device=cuda)[:x.numel()]
-    x = x.to(getattr(torch, dtype))
+    x = _stats_input(cuda, shape, dtype, 0)
     got = TTS.tensor_stats_cuda(x)
     want = TREF.tensor_stats(x)
     for k in STATS:
@@ -82,14 +107,11 @@ def _check_row(row, x, stats, header):
     assert torch.equal(row[5:10], own)
 
 
-ROW_SHAPES = [(4, 1, 896), (4, 1, 152064), (2, 4096, 896), (1,), (1027,),
-              (TTS.ONE_BLOCK_MAX + 1,)]
-
-
-@pytest.mark.parametrize("shape", ROW_SHAPES,
+@pytest.mark.parametrize("shape", STATS_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_tensor_stats_row_kernel_matches_plain(cuda, shape, dtype):
+    """The row, bit-identical over three runs."""
     g = torch.Generator(device=cuda).manual_seed(3)
     x = torch.randn(shape, generator=g, device=cuda) * 7
     x.view(-1)[-3:] = torch.tensor([float("nan"), float("-inf"),
@@ -97,6 +119,8 @@ def test_tensor_stats_row_kernel_matches_plain(cuda, shape, dtype):
     x = x.to(getattr(torch, dtype))
     row = TTS.tensor_stats_row_cuda(x, 5, 1, 23)
     _check_row(row, x, TTS.tensor_stats_cuda(x), (5, 1, 23))
+    for _ in range(2):
+        assert torch.equal(TTS.tensor_stats_row_cuda(x, 5, 1, 23), row)
 
 
 def test_tensor_stats_repeats_bit_identical_across_grids(cuda):
@@ -197,12 +221,14 @@ def _hash_inputs(seed, n, batch, *, tombstones, full):
     return st, keys, deltas, valid
 
 
+@pytest.mark.parametrize("n,batch", [(256, 512), (64, 13), (16384, 49),
+                                     (16384, 4096)])
 @pytest.mark.parametrize("case", [dict(tombstones=False, full=False),
                                   dict(tombstones=True, full=False),
                                   dict(tombstones=False, full=True)],
                          ids=["plain", "tombstones", "full"])
-def test_hash_kernel_matches_plain_and_numpy(cuda, case):
-    st, keys, deltas, valid = _hash_inputs(5, 256, 512, **case)
+def test_hash_kernel_matches_plain_and_numpy(cuda, case, n, batch):
+    st, keys, deltas, valid = _hash_inputs(5, n, batch, **case)
     args = [torch.as_tensor(a, device=cuda) for a in
             (st["keys"], st["used"], st["values"], keys, deltas, valid)]
     got = TH.hash_fetch_add_batch_cuda(*args)
@@ -261,7 +287,9 @@ def _hidden_case(first):
     return st, keys, deltas, np.ones(5, dtype=bool)
 
 
-HASH_BATCHES = [0, 1, 49, 1024, 1025, 4096]
+# the decode step's batches (qwen2 49, llama4-scout 17, mamba2 145,
+# seamless's prefill 13, qwen2-vl 9) and the blocks' boundaries
+HASH_BATCHES = [0, 1, 9, 13, 17, 49, 145, 1024, 1025, 4096]
 
 
 @pytest.mark.parametrize("route", TH.ROUTES)
@@ -304,7 +332,7 @@ def test_hash_kernel_batch_table_in_scratch(cuda):
     _hash_check(cuda, st, keys, deltas, valid, None)
 
 
-@pytest.mark.parametrize("batch", [0, 40, 4096])
+@pytest.mark.parametrize("batch", [0, 1, 9, 17, 40, 49, 145, 4096])
 def test_ringbuf_kernel_matches_plain(cuda, batch):
     """Rows, head and the dropped (lap) count; the head starts past cap, so
     every row laps, and at 4096 rows only the last 64 stay."""
@@ -360,6 +388,25 @@ def test_ringbuf_apply_is_one_launch(cuda):
     assert int(out["cpu"]["dropped"]) == 300 - 64
 
 
+def test_ringbuf_apply_site_does_nothing_else_on_the_card(cuda):
+    """The fused lane's RINGBUF apply (`vectorized._apply_site`) at the
+    decode step's 49 records: one kernel launch, and every PyTorch
+    operator it dispatches only allocates or aliases."""
+    from types import SimpleNamespace
+    from repro_torch.core import jit as J, vectorized as V
+    spec = M.MapSpec("rb", M.MapKind.RINGBUF, 64, rec_width=4)
+    st = {"rb": M.init_state(spec, cuda)}
+    rec = (torch.ones(49, dtype=torch.bool, device=cuda),
+           torch.arange(49 * 4, device=cuda).reshape(49, 4))
+    aux = J.make_aux(device=cuda)
+    before = ops.launch_counts()["ringbuf_emit_batch"]
+    with C.Dispatched() as mode:
+        V._apply_site(SimpleNamespace(map_specs=[spec]), "ringbuf_output",
+                      (0,), rec, st, aux)
+    assert ops.launch_counts()["ringbuf_emit_batch"] == before + 1
+    assert C.device_work(mode.names) == [], mode.names
+
+
 # ------------------------------------------------- table interpreter
 
 CORPUS = sorted(Path(__file__).with_name("corpus").glob("*.json"))
@@ -376,9 +423,13 @@ def _interp_check(case, match_all):
 @pytest.mark.parametrize("events", [1, 49, 600, 4096])
 def test_interp_kernel_mixed_table_matches_plain(cuda, events):
     """Eight slots on both sub-lanes: counters, a HASH map that fills, a
-    ringbuf that laps, every other helper, loops whose fuel runs out."""
-    from repro_torch.kernels import interp_cases as IC
-    _interp_check(IC.mixed_case(events, events, cuda), False)
+    ringbuf that laps, every other helper, loops whose fuel runs out; the
+    map states in shared memory."""
+    from repro_torch.kernels import interp_cases as IC, table_interp as TI
+    case = IC.mixed_case(events, events, cuda)
+    P, N = case[1]["hcls"].shape
+    assert TI.plan(case[0], P, N, events, 16)["maps"] == "shared"
+    _interp_check(case, False)
 
 
 @pytest.mark.parametrize("events", [49, 600, 1029])
@@ -450,13 +501,15 @@ def _flash_case(cuda, BH, BKH, S, hd, dtype, seed):
     return mk(BH), mk(BKH), mk(BKH), mk(BH)
 
 
-# (BH, BKH, S, hd): GQA rep 1, 2 and 7; S off the 64-row tile; the path's
-# head dim 64 and the smoke config's 16; one batch row of the training
-# path's shape (S 4096, 14 q / 2 kv heads); llama4-scout's row (40 q / 8
-# kv heads of 128: rep 5) and seamless's batch of 2 (16 heads of 64, rep 1)
-FLASH_CASES = [(4, 4, 128, 32), (8, 4, 256, 16), (14, 2, 200, 64),
-               (28, 4, 1024, 64), (4, 2, 100, 128), (14, 2, 4096, 64),
-               (40, 8, 4096, 128), (32, 32, 4096, 64)]
+# (BH, BKH, S, hd): GQA rep 1, 2, 4 and 7; S off the 64-row tile; the
+# path's head dim 64 and the smoke config's 16; one batch row and the
+# batch of 2 of the training path's shape (S 4096, 14 q / 2 kv heads);
+# llama4-scout's row (40 q / 8 kv heads of 128: rep 5), qwen2-vl's (64 q
+# / 8 kv heads of 128) and seamless's batch of 2 (16 heads of 64, rep 1)
+FLASH_CASES = [(4, 4, 128, 32), (8, 4, 256, 16), (8, 2, 128, 64),
+               (14, 2, 200, 64), (28, 4, 1024, 64), (4, 2, 100, 128),
+               (14, 2, 4096, 64), (28, 4, 4096, 64), (40, 8, 4096, 128),
+               (64, 8, 4096, 128), (32, 32, 4096, 64)]
 
 
 @pytest.mark.parametrize("case", FLASH_CASES,
@@ -631,17 +684,29 @@ def test_tree_on_the_card_equals_numpy_tree(cuda, tmp_path):
 
 
 def test_fuzz_seeds_on_the_card(cuda):
-    """The fuzz harness's seeds 0-19 with every lane on the card: the
+    """The fuzz harness's seeds 0-99 with every lane on the card: the
     table and batched lanes launch the interpreter kernel."""
     from repro_torch.core import fuzz as F
     ops.reset_launch_counts()
     lanes = set()
-    for seed in range(20):
+    for seed in range(100):
         r = F.run_case(F.generate_case(seed), device=cuda)
         assert not r.diverged, (seed, r.mismatches or r.crashed)
         lanes.update(r.lanes)
     assert {"jit", "table", "batched", "vectorized", "merge1"} <= lanes
     assert ops.launch_counts()["table_interp"] > 0
+
+
+@pytest.mark.parametrize("path", CORPUS, ids=[p.stem for p in CORPUS])
+def test_fuzz_corpus_on_the_card(cuda, path):
+    """A corpus case, every lane on the card: accepted, no lane diverges,
+    and it runs on the lanes the corpus pins."""
+    from repro_torch.core import fuzz as F
+    d = json.loads(path.read_text())
+    r = F.run_case(F.FuzzCase.from_json(d), device=cuda)
+    assert r.accepted and not r.diverged, (r.rejected, r.crashed,
+                                           r.mismatches)
+    assert r.lanes == d["lanes"]
 
 
 @pytest.mark.parametrize("arch,k", [("llama4-scout-17b-a16e", 1),
@@ -769,19 +834,24 @@ def test_encdec_and_vlm_on_the_card_equal_the_cpu(cuda, arch):
                                    b.float().numpy(), rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "mamba2-780m",
-                                  "seamless-m4t-medium", "qwen2-vl-72b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "llama4-scout-17b-a16e",
+                                  "mamba2-780m", "seamless-m4t-medium",
+                                  "qwen2-vl-72b"])
 def test_family_train_step_on_the_card_equals_the_cpu(cuda, arch):
     """One training step of a smoke-width model (f32, TF32 off) at its
     family's preset optimizer (Adafactor for llama4-scout and qwen2-vl,
-    AdamW for mamba2 and seamless) on the card and on the CPU from the same
-    weights and batch: seamless at 4096 frames and tokens (the f32 flash
-    kernels, non-causal in the encoder), qwen2-vl with patch-grid M-RoPE
-    ids. Loss and gradient norm within 1e-4 relative, parameters within
-    3e-5. llama4-scout's top-1 router has a gradient that is zero in exact
+    AdamW for the others) with TRAIN_PROBES on the fused lane, on the card
+    and on the CPU from the same weights and batch: qwen2 at 4096 tokens
+    (the f32 flash kernels, causal), seamless at 4096 frames and tokens
+    (non-causal in the encoder), qwen2-vl with patch-grid M-RoPE ids. Loss
+    and gradient norm within 1e-4 relative, each gradient leaf within 1e-4
+    of its own norm (floored at 1e-3 of the whole gradient's), parameters
+    within 3e-5, the counter, hash and histogram maps bit for bit.
+    llama4-scout's top-1 router has a gradient that is zero in exact
     arithmetic (every gate renormalised over one expert is 1): its largest
     gradient is below 1e-8 on both devices, and its move within
     Adafactor's bound (optim/optimizers.adafactor_move_bound)."""
+    from repro_torch.core.runtime import to_numpy
     from repro_torch.configs import registry as R
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import SyntheticDataset
@@ -793,7 +863,8 @@ def test_family_train_step_on_the_card_equals_the_cpu(cuda, arch):
     cfg = R.smoke(arch)
     tcfg = presets.train_config(arch, param_dtype="float32", microbatch=0,
                                 warmup=0, total_steps=10)
-    S, B = (4096, 1) if cfg.family == "encdec" else (64, 2)
+    S, B = (4096, 1) if cfg.family == "encdec" else \
+        (4096, 2) if arch == "qwen2-0.5b" else (64, 2)
     batch = SyntheticDataset(cfg, ShapeConfig("cmp", S, B, "train"), tcfg,
                              seed=0).next()
     if cfg.rope_kind == "mrope":
@@ -816,15 +887,22 @@ def test_family_train_step_on_the_card_equals_the_cpu(cuda, arch):
             grads = torch.autograd.grad(loss, leaves)
             for x in leaves:
                 x.requires_grad_(False)
-            state = init_train_state(cfg, tcfg, device=dev, params=p)
-            state, m = make_train_step(cfg, tcfg)(state, batch)
+            rt, _ = C.train_runtime(cfg)
+            state = init_train_state(cfg, tcfg, rt, device=dev, params=p)
+            state, m = make_train_step(cfg, tcfg, rt, probe_mode="fused")(
+                state, batch)
             got.append((float(m["loss"]), float(m["grad_norm"]),
                         float(m["lr"]), [g.cpu() for g in grads],
-                        [x.cpu() for x in TO.tree_leaves(state["params"])]))
+                        [x.cpu() for x in TO.tree_leaves(state["params"])],
+                        to_numpy(state["maps"])))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    (lg, ng, lr, gg, pg), (lc, nc, _, gc, pc) = got
+    (lg, ng, lr, gg, pg, mg), (lc, nc, _, gc, pc, mc) = got
     assert abs(lg - lc) <= 1e-4 * abs(lc) and abs(ng - nc) <= 1e-4 * nc
+    for name in ("tr_layer_counts", "tr_key_hash", "tr_gnorm_hist"):
+        for f in mc[name]:
+            assert np.array_equal(mg[name][f], mc[name][f]), (name, f)
+    floor = 1e-3 * float(torch.sqrt(sum(w.square().sum() for w in gc)))
     names, before = TO.tree_paths(params), TO.tree_leaves(params)
     routers = 0
     for name, p0, a, c, ga, gc_ in zip(names, before, pg, pc, gg, gc):
@@ -838,6 +916,8 @@ def test_family_train_step_on_the_card_equals_the_cpu(cuda, arch):
                     weight_decay=tcfg.weight_decay)
                 assert rms <= bound, (name, rms, bound)
             continue
+        assert float((ga - gc_).norm()) <= \
+            1e-4 * max(float(gc_.norm()), floor), name
         np.testing.assert_allclose(a.numpy(), c.numpy(), rtol=0, atol=3e-5,
                                    err_msg=name)
     # one stacked router leaf (layers on dim 0) for top-1, none held so for
@@ -906,23 +986,32 @@ def test_custom_op_launches_the_kernel(cuda, name):
     got = getattr(torch.ops.repro_torch, name)(*args)
     torch.cuda.synchronize()
     assert ops.launch_counts()[kernel] == before + 1
-    want = plain(*args)
+    want, eager = plain(*args), getattr(ops, name)(*args)
     if name == "tensor_stats_row":
+        assert torch.equal(got, eager)
         assert torch.equal(got[:5], want[:5])
         assert torch.equal(got[10:], want[10:])
         torch.testing.assert_close(got[5:10].double(), want[5:10].double(),
                                    rtol=TOL, atol=TOL * 65536)
     else:
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
+        for g, e, w in zip(got, eager, want):
+            assert torch.equal(g, e) and torch.equal(g, w)
 
 
-def test_log2_histogram_card_equals_cpu(cuda):
+@pytest.mark.parametrize("n", [1 << 22, 1 << 26])
+def test_log2_histogram_card_equals_cpu(cuda, n):
+    """Zeros, negatives, NaN (also every 4097th element of the second
+    half), +-Inf, subnormals and values past 2**46, whose Q47.16 value
+    clips at 2**62."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn(1 << 22, generator=g, device=cuda) * torch.exp2(
-        torch.randint(-40, 80, (1 << 22,), generator=g, device=cuda).float())
-    x[:8] = torch.tensor([0.0, -1.0, float("nan"), float("inf"),
-                          -float("inf"), 1e-40, 2.0**47, 3e38])
+    x = torch.randn(n, generator=g, device=cuda) * torch.exp2(
+        torch.randint(-40, 80, (n,), generator=g, device=cuda).float())
+    specials = torch.tensor(
+        [0.0, -0.0, -1.0, float("nan"), float("inf"), -float("inf"), 1e-39,
+         1e-40, -1e-40, 2.0**-16, 2.0**46, 2.0**47, 2.0**62, 3.0e38],
+        device=cuda)
+    x[:specials.numel()] = specials
+    x[n // 2::4097] = float("nan")
     for n_bins in (64, 16, 1):
         got = ops.log2_histogram(x, n_bins)
         assert got.is_cuda

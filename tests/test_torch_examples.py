@@ -1,16 +1,17 @@
 """The port's examples (examples/torch/, the twins of examples/*.py) run as
-real subprocesses on the CPU: each must exit 0 -- every twin asserts its
-own end-to-end invariants and exits non-zero on failure -- and print the
-lines tests/test_examples_smoke.py asserts of its JAX twin. Each run gets
-its own temporary directory (TMPDIR, the shm region, checkpoints).
-train_e2e is shortened with its own --steps."""
+real subprocesses on the CPU and, marked `cuda`, on the card: each must
+exit 0 -- every twin asserts its own end-to-end invariants and exits
+non-zero on failure -- and print the lines tests/test_examples_smoke.py
+asserts of its JAX twin. Each run gets its own temporary directory
+(TMPDIR, the shm region, checkpoints). train_e2e is shortened with its own
+--steps. This file imports no JAX."""
 import os
 import subprocess
 import sys
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -43,14 +44,12 @@ TWINS = {
 }
 
 
-@pytest.mark.parametrize("twin", list(TWINS))
-def test_twin_runs_on_the_cpu(tmp_path, twin):
-    args, lines = TWINS[twin]
+def _run(tmp_path, twin, device, args, lines):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                TMPDIR=str(tmp_path), BPFTIME_SHM=str(tmp_path / "shm"))
     out = subprocess.run(
         [sys.executable, os.path.join(ROOT, "examples", "torch", twin),
-         "--device", "cpu", *args],
+         "--device", device, *args],
         capture_output=True, text=True, env=env, cwd=str(tmp_path),
         timeout=400)
     assert out.returncode == 0, \
@@ -58,3 +57,29 @@ def test_twin_runs_on_the_cpu(tmp_path, twin):
         f"\n--- stderr\n{out.stderr[-3000:]}"
     for line in lines:
         assert line in out.stdout, (line, out.stdout[-2000:])
+
+
+@pytest.mark.parametrize("twin", list(TWINS))
+def test_twin_runs_on_the_cpu(tmp_path, twin):
+    _run(tmp_path, twin, "cpu", *TWINS[twin])
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("twin", list(TWINS))
+def test_twin_runs_on_the_card(cuda, tmp_path, twin):
+    _run(tmp_path, twin, "cuda", *TWINS[twin])
+
+
+@pytest.mark.cuda
+def test_train_e2e_resumes_on_the_card(cuda, tmp_path):
+    """20 steps (a checkpoint every 10), then --resume to 30."""
+    _run(tmp_path, "train_e2e.py", "cuda", ["--steps", "20"],
+         ["model: 64M params", "latest checkpoint: step 20"])
+    _run(tmp_path, "train_e2e.py", "cuda", ["--steps", "30", "--resume"],
+         ["resumed from step 20", "latest checkpoint: step 30"])

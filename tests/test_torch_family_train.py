@@ -30,6 +30,7 @@ from repro.models import registry as JMR  # noqa: E402
 from repro.train.train_step import (init_train_state as j_init,  # noqa: E402
                                     make_train_step as j_make)
 
+from torch_card import block_targets  # noqa: E402
 from repro_torch.configs import registry as TCFG  # noqa: E402
 from repro_torch.core import maps as TM  # noqa: E402
 from repro_torch.core.runtime import BpftimeRuntime as TRuntime, to_numpy  # noqa: E402,E501
@@ -267,16 +268,6 @@ def test_presets_match_jax(arch, monkeypatch):
 
 
 # ------------------------------------------------- train steps at the preset
-
-def block_targets(cfg) -> list:
-    """Where TRAIN_PROBES' layer counters attach: uprobe:block, which every
-    decoder layer fires; the encoder-decoder family fires no such site, so
-    for it its layers' exits, uretprobe:enc.block and uretprobe:dec.block
-    (as chip_smoke.py attaches them)."""
-    if cfg.family == "encdec":
-        return ["uretprobe:enc.block", "uretprobe:dec.block"]
-    return ["uprobe:block"]
-
 
 def probe_runtimes(cfg):
     """A JAX and a port runtime with launch/train.TRAIN_PROBES on the

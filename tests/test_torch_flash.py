@@ -7,8 +7,8 @@ hi)) whose products are summed in the f32 accumulator, so each carries
 about 16 bits; every accumulator stays f32. `model_fwd` and `model_bwd`
 below repeat those rounding points in a few lines of PyTorch on the CPU;
 the tests hold the model, at the kernels' bf16 tolerances
-(`flash_attention.TOL_*`, shared with `chip_smoke.py` and
-`tests/test_torch_cuda.py`), against the Pallas kernels in interpret mode
+(`flash_attention.TOL_*`, shared with `tests/test_torch_cuda.py`),
+against the Pallas kernels in interpret mode
 and against the port's plain versions, and show that one bf16 term alone,
 as SDPA rounds P, does not hold o's tolerance. They also check the
 wrapper's dispatch by type without launching anything.
@@ -163,7 +163,8 @@ def test_bf16_model_matches_pallas_interpret(shape, causal):
 @pytest.mark.parametrize("causal", [True, False])
 def test_bf16_model_matches_plain_at_path_heads(causal):
     """B 1, S 1024, 14 q / 2 kv heads, hd 64: the model against the plain
-    versions that chip_smoke.py holds the kernels to, at its tolerances."""
+    versions that the card tests hold the kernels to, at their
+    tolerances."""
     BH, BKH, S, hd = 14, 2, 1024, 64
     q, k, v, do = _inputs(BH, BKH, S, hd, 13 + causal)
     o, lse = model_fwd(q, k, v, causal, BH // BKH)

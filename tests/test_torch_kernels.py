@@ -184,12 +184,12 @@ def test_kernel_modules_import_no_toolchain():
     assert TTS.grid_for(1) == 1 and TTS.grid_for(1 << 30) == TTS.MAX_GRID
 
 
-def test_interp_launch_plan_and_phase_split():
+def test_interp_launch_plan():
     """The interpreter's launch plan is a function of the map universe's
     size and the shapes: map states in shared memory up to the budget,
     then in device memory; the tape in shared memory while it fits after
     them, else a ring; a table too large for its records and lanes
-    raises. Its stamps split a launch into phases at the reported clock."""
+    raises."""
     from repro_torch.kernels import table_interp as TI
     small = TI.layout(1000, 8, 64, 49, 16)
     assert (small["maps"], small["tape"]) == ("shared", "shared")
@@ -201,11 +201,3 @@ def test_interp_launch_plan_and_phase_split():
     assert TI.layout(fits + 1, 8, 64, 4096, 16)["maps"] == "global"
     with pytest.raises(ValueError, match="shared memory"):
         TI.layout(0, 64, 1024, 49, 16)
-    # P = 2: start, copy-in, seq, slot 0, slot 1, copy-out, cycles, rounds
-    stamps = torch.tensor([0, 100, 1100, 1300, 1600, 1700, 250, 3])
-    ph = TI.phase_split(stamps, 1_000_000, [1])      # 1 GHz: 1 ns a cycle
-    assert [ph[k] for k in ("copy_in", "seq", "vec", "copy_out",
-                            "hash_apply", "total")] == \
-        pytest.approx([0.1, 1.0, 0.5, 0.1, 0.25, 1.7])
-    assert ph["hash_rounds"] == 3
-    assert ph["per_vec_slot"] == {1: pytest.approx(0.3)}

@@ -531,7 +531,7 @@ def test_run_training_asks_for_cuda_and_refuses_later_slices(tmp_path):
 
 
 def test_train_probes_load_and_catch_nan(weights):
-    """chip_smoke.py's probe set: counters, the gradient-norm histogram,
+    """The card tests' probe set: counters, the gradient-norm histogram,
     the loss record, and the NaN guard, which vetoes a step whose loss is
     NaN."""
     _, tp = weights
