@@ -68,14 +68,17 @@ def make_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
 
 
 def prefill_fn(params, batch, cache, cfg: ModelConfig):
-    """batch: tokens (+ enc_embeds | embeds/positions)."""
+    """batch: tokens (+ enc_embeds | embeds/positions); the decoder
+    families also take "length", the [B] int64 real lengths of
+    right-padded tokens, and write the new cache into `cache`
+    (`transformer.forward`)."""
     if cfg.family == "encdec":
         enc_out = ED.encode(params, batch["enc_embeds"], cfg)
         return ED.prefill(params, batch["tokens"], enc_out, cache, cfg)
     return TF.forward(params, batch["tokens"], cfg,
                       embeds=batch.get("embeds"),
                       positions=batch.get("positions"), cache=cache,
-                      mode="prefill")
+                      mode="prefill", length=batch.get("length"))
 
 
 def decode_fn(params, tokens, cache, cfg: ModelConfig, *, cache_out=None):
@@ -101,6 +104,16 @@ def decode_capturable(cfg: ModelConfig) -> bool:
     if any(cfg.ffn_kind(j) == "moe" for j in range(cfg.superblock)):
         return not TF.expert_parallel(cfg)
     return True
+
+
+def prefill_capturable(cfg: ModelConfig) -> bool:
+    """Whether a right-padded prefill (`prefill_fn` with "length") can be
+    captured in CUDA graphs and give each real position what the prompt
+    alone gives: `decode_capturable`, and every MoE layer dropless. A
+    capacity MoE (`moe.capacity` grows with the tokens) would let padded
+    tokens take real tokens' slots."""
+    return decode_capturable(cfg) and (cfg.moe_dropless or not any(
+        cfg.ffn_kind(j) == "moe" for j in range(cfg.superblock)))
 
 
 # each module's leaves that its functions use only through a cast to the

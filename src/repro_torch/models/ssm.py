@@ -109,9 +109,10 @@ def _split_proj(zxbcdt, cfg):
     return z, xb, Bv, Cv, dt
 
 
-def _causal_conv(x, w, b, state=None):
+def _causal_conv(x, w, b, state=None, length=None):
     """depthwise causal conv. x: [B, S, C]; w: [K, C]. state: [B, K-1, C]
-    (decode). Returns (y, new_state)."""
+    (decode). length: [B] real lengths of right-padded rows (None: S); the
+    new state is the K-1 inputs that end there. Returns (y, new_state)."""
     K = w.shape[0]
     if state is None:
         pad = x.new_zeros((x.shape[0], K - 1, x.shape[2]))
@@ -121,7 +122,11 @@ def _causal_conv(x, w, b, state=None):
     y = sum(xp[:, i:i + x.shape[1], :] * w[i].to(x.dtype)
             for i in range(K))
     y = y + b.to(x.dtype)
-    new_state = xp[:, -(K - 1):, :]
+    if length is None:
+        new_state = xp[:, -(K - 1):, :]
+    else:
+        at = length[:, None] + torch.arange(K - 1, device=x.device)
+        new_state = xp.gather(1, at[..., None].expand(-1, -1, xp.shape[2]))
     return F.silu(y.to(F32)).to(x.dtype), new_state
 
 
@@ -204,16 +209,20 @@ def chunk_scan(states, chunk_decay):
     return torch.stack(h_prev, dim=1), h
 
 
-def apply_mamba(p, x, cfg: ModelConfig, *, cache=None, return_state=False):
+def apply_mamba(p, x, cfg: ModelConfig, *, cache=None, return_state=False,
+                length=None):
     """x: [B, S, D]. cache: None (train/prefill) or dict(conv, ssm) for
     decode (S must be 1). return_state=True (prefill) returns the final
-    (conv, ssm) state as the new cache. Returns (y [B,S,D], new_cache).
-    Inside the span `ssm.mixer`."""
+    (conv, ssm) state as the new cache. length (prefill): [B] real lengths
+    of right-padded rows; the positions past them take dt 0, so they
+    neither decay the state nor feed it, and the conv state ends at the
+    real length. Returns (y [B,S,D], new_cache). Inside the span
+    `ssm.mixer`."""
     with T.span("ssm.mixer"):
-        return _mamba(p, x, cfg, cache, return_state)
+        return _mamba(p, x, cfg, cache, return_state, length)
 
 
-def _mamba(p, x, cfg: ModelConfig, cache, return_state):
+def _mamba(p, x, cfg: ModelConfig, cache, return_state, length=None):
     Bsz, S, D = x.shape
     dt_ = x.dtype
     di = cfg.d_inner()
@@ -227,11 +236,14 @@ def _mamba(p, x, cfg: ModelConfig, cache, return_state):
     A = -torch.exp(p["A_log"])                             # [H], negative
     conv_out, conv_state = _causal_conv(
         conv_in, p["conv_w"], p["conv_b"],
-        None if cache is None else cache["conv"])
+        None if cache is None else cache["conv"], length)
     xb = conv_out[..., :di]
     Bv = conv_out[..., di:di + G * N].reshape(Bsz, S, G, N)
     Cv = conv_out[..., di + G * N:].reshape(Bsz, S, G, N)
     dt = F.softplus(dtr.to(F32) + p["dt_bias"])            # [B,S,H]
+    if length is not None:
+        real = torch.arange(S, device=x.device)[None, :] < length[:, None]
+        dt = torch.where(real[..., None], dt, 0.0)
     xh = xb.reshape(Bsz, S, H, P)
     skip = xh * p["D"].to(dt_)[None, None, :, None]
     if cache is None:

@@ -133,9 +133,11 @@ def _residual(x, out, cfg: ModelConfig):
 
 
 def _superblock_fwd(p_sb, x, cache_sb, positions, cfg: ModelConfig,
-                    mode: str, cache_pos, out_sb=None):
-    """out_sb (decode): the superblock's rows of the cache the new cache is
-    written into; the new cache returned is then None."""
+                    mode: str, cache_pos, out_sb=None, length=None):
+    """out_sb: the superblock's rows of the cache the new cache is written
+    into (the prefill's: the cache it reads); the new cache returned is
+    then None. length (prefill): the real lengths of right-padded rows
+    (`forward`)."""
     new_cache = []
     for j in range(cfg.superblock):
         kind, ffn = cfg.block_kind(j), cfg.ffn_kind(j)
@@ -151,10 +153,8 @@ def _superblock_fwd(p_sb, x, cache_sb, positions, cfg: ModelConfig,
             elif mode == "prefill":
                 out, (k_new, v_new) = L.attention_block(p["attn"], h,
                                                         positions, cfg)
-                start = torch.zeros(x.shape[0], dtype=torch.int64,
-                                    device=x.device)
-                new_cache.append({"k": L._write_cache(c["k"], k_new, start),
-                                  "v": L._write_cache(c["v"], v_new, start)})
+                o["k"][:, :x.shape[1]] = k_new
+                o["v"][:, :x.shape[1]] = v_new
             else:  # decode
                 out, kv = L.attention_block(
                     p["attn"], h, positions, cfg, cache=(c["k"], c["v"]),
@@ -166,12 +166,12 @@ def _superblock_fwd(p_sb, x, cache_sb, positions, cfg: ModelConfig,
                 out, c = SSM.apply_mamba(p["mamba"], h, cfg)
             elif mode == "prefill":
                 out, c = SSM.apply_mamba(p["mamba"], h, cfg,
-                                         return_state=True)
+                                         return_state=True, length=length)
             else:
                 out, c = SSM.apply_mamba(p["mamba"], h, cfg, cache=c)
-                if o is not None:
-                    for f in c:
-                        o[f].copy_(c[f])
+            if o is not None:
+                for f in c:
+                    o[f].copy_(c[f])
             new_cache.append(c)
         out = probe_site("attn.out" if kind == "attn" else "ssm.out", out)
         x = _residual(x, out, cfg)
@@ -196,14 +196,21 @@ def _superblock_fwd(p_sb, x, cache_sb, positions, cfg: ModelConfig,
 
 def forward(params, tokens, cfg: ModelConfig, *, embeds=None,
             positions=None, cache=None, mode: str = "train",
-            remat: bool = False, cache_out=None):
+            remat: bool = False, cache_out=None, length=None):
     """tokens: [B, S_text] int; embeds: [B, S_front, D] modality stub
     (prepended); positions: [B, S], or [B, S, 3] for M-RoPE (default iota,
     or the cache length when decoding, on all three axes for M-RoPE);
     remat recomputes each superblock's activations in the backward pass;
     cache_out (decode): a cache shaped like `cache` that the new cache is
-    written into and returned as, `cache` only read. Returns (logits f32
-    [B, S, V], new_cache|None)."""
+    written into and returned as, `cache` only read; the prefill writes
+    the new cache into `cache` and returns it (every caller gives it a
+    fresh cache, or one whose rows past the prompt are masked by its
+    length); length (prefill): [B] int64 real lengths of right-padded
+    rows: the
+    cache's length grows by them, and a Mamba-2 mixer's state is the one
+    at the real length (`ssm.apply_mamba`). Attention is causal, so a real
+    row sees no padded one; the padded rows' K/V land at positions the
+    new length masks. Returns (logits f32 [B, S, V], new_cache|None)."""
     x = L.embed(params["embed"], tokens, cfg)
     if cfg.embedding_multiplier != 1.0:
         x = x * cfg.embedding_multiplier
@@ -226,18 +233,21 @@ def forward(params, tokens, cfg: ModelConfig, *, embeds=None,
     def body(x, xs):
         p_sb, c_sb, *out_sb = xs
         return _superblock_fwd(p_sb, x, c_sb, positions, cfg, mode,
-                               cache_pos, *out_sb)
+                               cache_pos, *out_sb, length=length)
 
     if cache is None:
         x, _ = E.probed_scan(lambda c, p_sb: (body(c, (p_sb, None))[0], None),
                              x, params["stack"], remat=remat)
         new_cache = None
     else:
+        if mode == "prefill":
+            cache_out = cache
         xs = (params["stack"], {"blocks": cache["blocks"]})
         if cache_out is not None:
             xs += ({"blocks": cache_out["blocks"]},)
         x, new_blocks = E.probed_scan(body, x, xs, remat=remat)
-        new_pos = cache["pos"] + (S if mode != "train" else 0)
+        grown = S if length is None else length.to(cache["pos"].dtype)
+        new_pos = cache["pos"] + (grown if mode != "train" else 0)
         if cache_out is None:
             new_cache = {"blocks": new_blocks, "pos": new_pos}
         else:

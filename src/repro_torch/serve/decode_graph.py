@@ -42,8 +42,6 @@ segment holds one layer's mixer or its experts: the `ssm.mixer` and
 from __future__ import annotations
 
 import contextlib
-import gc
-import warnings
 
 import torch
 
@@ -52,6 +50,7 @@ from ..configs.base import ModelConfig
 from ..core import events as E
 from ..device import tracing
 from ..models import registry as MR
+from .graph_capture import Capture, capture, replay, settle
 
 
 def engages(cfg: ModelConfig, cache) -> bool:
@@ -60,45 +59,6 @@ def engages(cfg: ModelConfig, cache) -> bool:
     step is not being traced for export or counting."""
     return (cache["pos"].is_cuda and not tracing()
             and MR.decode_capturable(cfg))
-
-
-class _Capture(E.Collector):
-    """The collector while the decode work is captured. A wanted site ends
-    the graph being captured, keeping (site id, kind, layer, tensor) beside
-    it, and starts the next graph in the same pool. Outside a capture (the
-    warm pass) a site does nothing."""
-
-    def __init__(self, wanted, pool):
-        super().__init__(wanted)
-        self.pool = pool
-        self.graph = None
-        # (graph, site or None, span name or None, records)
-        self.segments: list = []
-
-    def begin(self):
-        self.graph = torch.cuda.CUDAGraph()
-        T.notes_begin()
-        self.graph.capture_begin(pool=self.pool,
-                                 capture_error_mode="thread_local")
-
-    def end(self, site=None):
-        graph, self.graph = self.graph, None
-        with warnings.catch_warnings():
-            # a segment with only views in it (between one layer's exit
-            # site and the next one's entry site, or after the `logits`
-            # site) captures no work: a valid graph whose replay does nothing
-            warnings.filterwarnings("ignore", "The CUDA Graph is empty")
-            graph.capture_end()
-        notes = T.notes_end()
-        spans = {n[1] for n in notes if n[0] == "span"}
-        self.segments.append((graph, site,
-                              spans.pop() if len(spans) == 1 else None,
-                              [n[1:] for n in notes if n[0] == "count"]))
-
-    def emit_tensor_event(self, site_id: int, kind: int, tensor):
-        if self.graph is not None:
-            self.end((site_id, kind, int(self.layer_ctx), tensor.detach()))
-            self.begin()
 
 
 class DecodeGraphs:
@@ -131,10 +91,7 @@ class DecodeGraphs:
         segments, logits = self.sets[src]
         layer = col.layer_ctx if col is not None else 0
         for graph, site, name, records in segments:
-            with T.span(name) if name else T.OFF:
-                graph.replay()
-            for rec in records:
-                T.count(*rec)
+            replay(graph, name, records)
             if site is not None:
                 sid, kind, at, t = site
                 col.layer_ctx = at
@@ -171,7 +128,7 @@ class DecodeGraphs:
             self.stream = torch.cuda.Stream(dev)
         if not self.sets:
             self.pool = torch.cuda.graph_pool_handle()
-        cap = _Capture(self.wanted, self.pool)
+        cap = Capture(self.pool, self.wanted)
 
         def run():
             # the step's own collector is active around this call
@@ -184,23 +141,7 @@ class DecodeGraphs:
         self.stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(self.stream), torch.no_grad():
             run()
-            # the warm pass's memory stays cached for the side stream, where
-            # nothing else would reuse it: hand it back before the capture;
-            # and collect garbage first, as `torch.cuda.graph` does: graphs
-            # of an earlier step freed by a collection inside the capture
-            # would invalidate it
-            torch.cuda.synchronize(dev)
-            gc.collect()
-            torch.cuda.empty_cache()
-            cap.begin()
-            try:
-                logits = run()
-            except BaseException:
-                if cap.graph is not None:
-                    with contextlib.suppress(RuntimeError):
-                        cap.graph.capture_end()
-                    T.notes_end()
-                raise
-            cap.end()
+            settle(dev)
+            logits = capture(cap, run)
         torch.cuda.current_stream(dev).wait_stream(self.stream)
         return cap.segments, logits

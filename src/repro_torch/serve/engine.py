@@ -16,6 +16,7 @@ from .. import telemetry as T
 from ..configs.base import ModelConfig
 from ..device import resolve
 from ..models import registry as MR
+from . import prefill_graph as PG
 from .steps import make_decode_step
 
 
@@ -57,6 +58,10 @@ class ServeEngine:
         # the engine passes back the cache the step returned, so the step
         # may replay its model work from CUDA graphs over caches it owns
         self._decode = make_decode_step(cfg, runtime, graphs=True)
+        # where `prefill_graph.engages`, a prefill replays its model work
+        # from a graph of its padded length (`serve/prefill_graph.py`),
+        # every bucket captured at the first `submit_all`
+        self._prefill_graphs = None
         self.step_count = 0
         self.events = 0               # probe rows collected by decode steps
 
@@ -95,22 +100,33 @@ class ServeEngine:
         return False
 
     def _prefill_slot(self, slot: int, req: Request):
-        """Single-request prefill (unprobed) into its slot of the cache."""
+        """Single-request prefill (unprobed) into its slot of the cache:
+        replayed from the graph of its padded length where the graphed
+        prefill engages and the prompt fits a bucket, else eager. The
+        keyed record `serve.prefill_graph` counts the call."""
         with T.span("serve.prefill"):
-            T.count("serve.prefill_tokens", len(req.prompt))
-            toks = torch.tensor([req.prompt], dtype=torch.int64,
-                                device=self.device)
-            c1 = MR.make_cache(self.cfg, 1, self.max_seq, torch.float32,
-                               self.device)
-            logits, c1 = MR.prefill_fn(self.serving_params,
-                                       {"tokens": toks}, c1, self.cfg)
+            n = len(req.prompt)
+            T.count("serve.prefill_tokens", n)
+            graphs = self._prefill_graphs
+            if (graphs is not None and PG.engages(self.cfg, self.cache)
+                    and graphs.bucket(n) is not None):
+                last, c1 = graphs(req.prompt)
+            else:
+                T.count("serve.prefill_graph", ("eager", 0))
+                toks = torch.tensor([req.prompt], dtype=torch.int64,
+                                    device=self.device)
+                c1 = MR.make_cache(self.cfg, 1, self.max_seq,
+                                   torch.float32, self.device)
+                logits, c1 = MR.prefill_fn(self.serving_params,
+                                           {"tokens": toks}, c1, self.cfg)
+                last = logits[:, -1]
             # the engine owns its cache: write the slot in place
             with T.span("serve.slot_write"):
                 for full, one in zip(self.cache["blocks"], c1["blocks"]):
                     for f in full:
                         full[f][:, slot] = one[f][:, 0]
                 self.cache["pos"][slot] = c1["pos"][0]
-            nxt = int(torch.argmax(logits[0, -1, :self.cfg.vocab_size]))
+            nxt = int(torch.argmax(last[0, :self.cfg.vocab_size]))
             req.out.append(nxt)
 
     # ------------------------------------------------------------- main loop
@@ -119,6 +135,11 @@ class ServeEngine:
         for r in queue:
             self._admit(r)
         pending = [r for r in queue if not r.rejected]
+        if self._prefill_graphs is None and PG.engages(self.cfg, self.cache):
+            # every bucket before the first request is served
+            self._prefill_graphs = PG.PrefillGraphs(
+                self.cfg, self.max_seq, self.serving_params, self.device)
+            self._prefill_graphs.capture_all()
 
         while pending or any(self.active):
             with T.span("serve.iteration"):

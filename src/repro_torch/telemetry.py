@@ -23,7 +23,10 @@ beside the keyed records.
 While a CUDA graph is captured, `notes_begin()` / `notes_end()` keep, on
 or off, the names of the spans opened and the records counted in between,
 so that a replay of the graph, which runs no Python of the model, can
-open and count them again (`serve/decode_graph.py`).
+open and count them again (`serve/decode_graph.py`). Inside `cut_at(names,
+cut)` a span of one of those names calls `cut()` where it opens and where
+it closes, so that a capture can end the graph there and begin the next
+(`serve/prefill_graph.py`).
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ PREFIX = "repro_torch."
 _ON = False
 _KEYED: dict[str, dict] = {}
 _NOTES: list | None = None
+_CUT: tuple | None = None       # (span names, cut) inside `cut_at`
 
 
 class _Off:
@@ -72,6 +76,25 @@ class _Span:
         return False
 
 
+class _Cut:
+    """A span at which a capture is cut (`cut_at`): it opens no range; its
+    note goes to the graph begun where it opens."""
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        _CUT[1]()
+        _NOTES.append(("span", self.name))
+        return None
+
+    def __exit__(self, exc_type, *exc):
+        if exc_type is None:
+            _CUT[1]()
+        return False
+
+
 def on() -> bool:
     return _ON
 
@@ -79,6 +102,8 @@ def on() -> bool:
 def span(name: str):
     """A context manager around a region named `name` (static: each name
     is listed in PERF.md with the metric it feeds)."""
+    if _CUT is not None and name in _CUT[0]:
+        return _Cut(name)
     if _NOTES is not None:
         _NOTES.append(("span", name))
     if not _ON or tracing():
@@ -111,6 +136,19 @@ def notes_end() -> list:
     global _NOTES
     out, _NOTES = _NOTES or [], None
     return out
+
+
+@contextlib.contextmanager
+def cut_at(names, cut):
+    """Over the block, while notes are kept (`notes_begin`): each span
+    named in `names` calls `cut()` as it opens, then notes itself, and
+    calls `cut()` again as it closes (not where an exception leaves it)."""
+    global _CUT
+    _CUT = (frozenset(names), cut)
+    try:
+        yield
+    finally:
+        _CUT = None
 
 
 @contextlib.contextmanager
